@@ -110,10 +110,9 @@ int group_lanes(long long E, int D, int n_out) {
 
 template <bool kWeighted>
 int launch(const int* dst, const float* w, const float* msg, float* out, long long* bounds,
-           long long E, int D, int n_out, int group, void* stream) {
+           long long E, int D, int n_out, void* stream) {
   if (n_out <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  const int S = group > 0 ? group : group_lanes(E, D, n_out);
-  if (S > 32 || (S & (S - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int S = group_lanes(E, D, n_out);
   const int T = pow2_at_least(D) < S ? pow2_at_least(D) : S;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned edge_blocks = static_cast<unsigned>((E + 1 + kThreads - 1) / kThreads);
@@ -130,18 +129,17 @@ int launch(const int* dst, const float* w, const float* msg, float* out, long lo
 
 // Plain C entry points (bound with ctypes).  dst: int32[E] ascending;
 // w: float32[E]; msg: float32[E, D] row-major; out: float32[n_out, D],
-// every row written; bounds: int64[n_out + 1] scratch; group: lanes per
-// row (a power of two <= 32), or 0 for the built-in choice.  Launches on
+// every row written; bounds: int64[n_out + 1] scratch.  Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int repro_segment_sum_sorted(const int* dst, const float* msg, float* out,
                                         long long* bounds, long long E, int D, int n_out,
-                                        int group, void* stream) {
-  return launch<false>(dst, nullptr, msg, out, bounds, E, D, n_out, group, stream);
+                                        void* stream) {
+  return launch<false>(dst, nullptr, msg, out, bounds, E, D, n_out, stream);
 }
 
 extern "C" int repro_segment_sum_weighted_sorted(const int* dst, const float* w,
                                                  const float* msg, float* out,
                                                  long long* bounds, long long E, int D,
-                                                 int n_out, int group, void* stream) {
-  return launch<true>(dst, w, msg, out, bounds, E, D, n_out, group, stream);
+                                                 int n_out, void* stream) {
+  return launch<true>(dst, w, msg, out, bounds, E, D, n_out, stream);
 }

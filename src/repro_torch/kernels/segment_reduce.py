@@ -73,9 +73,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int, group: int) -> torch.Tensor:
-    if group not in (0, 1, 2, 4, 8, 16, 32):
-        raise ValueError(f"group must be 0 or a power of two up to 32, got {group}")
+def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int) -> torch.Tensor:
     lib = _build.library("segment_reduce")
     fn = getattr(lib, fn_name)
     E, D = msg.shape
@@ -84,35 +82,29 @@ def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int, group: int) -> 
     stream = torch.cuda.current_stream(msg.device).cuda_stream
     ptrs = [_ptr(dst)] + ([] if w is None else [_ptr(w)]) + [_ptr(msg), _ptr(out), _ptr(bounds)]
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(msg.device):
-        rc = fn(*ptrs, E, D, n_out, group, ctypes.c_void_p(stream))
+        rc = fn(*ptrs, E, D, n_out, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
     LAUNCHES[counter] += 1
     return out
 
 
-def segment_sum_sorted(
-    dst: torch.Tensor, msg: torch.Tensor, n_out: int, *, group: int = 0
-) -> torch.Tensor:
-    """out[d, :] = sum of msg rows with dst == d (d < n_out).  ``group``
-    is the kernel's lanes per row (0: its built-in rule; the launch-shape
-    hook for measurement and a later autotuner)."""
+def segment_sum_sorted(dst: torch.Tensor, msg: torch.Tensor, n_out: int) -> torch.Tensor:
+    """out[d, :] = sum of msg rows with dst == d (d < n_out)."""
     _check(dst, msg, n_out, None)
     if dst.device.type == "cpu":
         return segment_sum_sorted_plain(dst, msg, n_out)
-    return _launch("repro_segment_sum_sorted", "segment_sum", dst, None, msg, n_out, group)
+    return _launch("repro_segment_sum_sorted", "segment_sum", dst, None, msg, n_out)
 
 
 def segment_sum_weighted_sorted(
-    dst: torch.Tensor, w: torch.Tensor, msg: torch.Tensor, n_out: int, *, group: int = 0
+    dst: torch.Tensor, w: torch.Tensor, msg: torch.Tensor, n_out: int
 ) -> torch.Tensor:
     """out[d, :] = sum of w[e] * msg[e, :] over edges with dst == d."""
     _check(dst, msg, n_out, w)
     if dst.device.type == "cpu":
         return segment_sum_weighted_sorted_plain(dst, w, msg, n_out)
-    return _launch(
-        "repro_segment_sum_weighted_sorted", "segment_sum_weighted", dst, w, msg, n_out, group
-    )
+    return _launch("repro_segment_sum_weighted_sorted", "segment_sum_weighted", dst, w, msg, n_out)
