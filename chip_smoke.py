@@ -17,7 +17,32 @@ checks every result.  One JSON object per phase goes to stdout:
           ~66 M directed rMAT edges, drawn on the card) built straight
           into the device pool:
           engine_aux, PageRank, PageRank x8, BFS x16 (depths held against
-          scipy), and each kernel against its plain version at these shapes.
+          scipy), and each kernel against its plain version at these shapes;
+  compressed_kernels
+          each chunked kernel against its plain version on ragged chunk
+          counts: fixed int8 / int16 lanes with escapes, adaptive lanes
+          mixing narrow and wide chunks (escapes in both, spare hi rows),
+          and a narrow adaptive lane with an empty hi plane;
+  compressed_stream
+          ``AspenStream(compressed=True)`` at 2^18 vertices on 8 disjoint
+          rMAT communities of 2^15 vertices (first showing that the stream
+          phase's plain rMAT tree raises, as the reference's layout does),
+          every publish held against a rebuild and the numpy engine, and
+          both adaptive kernels held against their plain versions on the
+          last version's own lane (D = 1 and 8);
+  compressed_scale
+          with the flat scale graph freed, 128 disjoint rMAT
+          communities of 2^15 vertices (2^22 vertices,
+          ~63 M edges, drawn on the card) in the adaptive and the int16
+          layout, plain and weighted: ``CompressedEngine`` held against the
+          raw engine on the same edges, each chunked kernel timed against
+          its plain version and the raw kernel on the decoded lane (first
+          showing that the scale phase's plain rMAT graph raises).
+
+The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
+chunk) holds only graphs whose ids have community locality: on plain
+rMAT beyond 2^15 vertices some chunk needs more than 8 int16 escapes and
+``compress_host`` raises, in the reference as in the port (PERF.md §7).
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch or exception ends the run with a nonzero exit and no ``ok``
@@ -26,6 +51,7 @@ before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -80,14 +106,16 @@ def check_close(got, want, what: str) -> float:
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
-def rmat_symmetric_device(log_n: int, n_draws: int, seed: int):
+def rmat_symmetric_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
     """rMAT edges (a=0.5, b=c=0.1, d=0.3, paper §7.4) drawn on the card from
     a seeded generator, then symmetrized, deduplicated and stripped of
     self loops there: the semantics of ``repro_torch.data.rmat``'s
     ``symmetrize(rmat_edges(...))`` with the card's random stream.  At
     2^25 draws the numpy pair took 296.6 s on the H100 machine's host,
-    a quarter of this script's time limit (PERF.md).  Returns a host
-    (m, 2) int64 array, sorted by (src, dst)."""
+    a quarter of this script's time limit (PERF.md).  With
+    ``communities`` > 1 the draws split into that many equal runs, run c
+    over its own 2^log_n ids numbered from c << log_n (disjoint rMAT
+    communities).  Returns a host (m, 2) int64 array, sorted by (src, dst)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -100,6 +128,9 @@ def rmat_symmetric_device(log_n: int, n_draws: int, seed: int):
         dst_bit = torch.where(src_bit, r >= a + b + c, r >= a)
         src = (src << 1) | src_bit
         dst = (dst << 1) | dst_bit
+    if communities > 1:
+        off = (torch.arange(n_draws, device="cuda") * communities // n_draws) << log_n
+        src, dst = src + off, dst + off
     keys = torch.cat([(src << 32) | dst, (dst << 32) | src])
     keys = torch.unique(keys)
     keys = keys[(keys >> 32) != (keys & 0xFFFFFFFF)]
@@ -251,7 +282,7 @@ def phase_stream() -> dict:
     publish(stream.insert_edges, wedges, weights=weights)
     check_version(weighted=True)
     launches = dict(sr.LAUNCHES)
-    if min(launches.values()) == 0:
+    if min(launches["segment_sum"], launches["segment_sum_weighted"]) == 0:
         raise AssertionError(f"stream: a kernel was never launched: {launches}")
     kernel_err = stream_kernel_check(stream.engine("torch"))
 
@@ -278,7 +309,7 @@ def phase_stream() -> dict:
         "concurrent": conc._asdict(),
     }
     emit(out)
-    return launches
+    return launches, stream
 
 
 def stream_kernel_check(eng) -> dict:
@@ -430,6 +461,428 @@ def phase_scale_kernels(g, aux) -> list:
     emit({"phase": "scale_kernels", "cases": summary})
     return summary
 
+# ---------------------------------------------------------------------------
+# compressed phases
+# ---------------------------------------------------------------------------
+
+CHUNKED_KERNELS = ("segment_sum_chunked", "segment_sum_weighted_chunked",
+                   "segment_sum_chunked_adaptive", "segment_sum_weighted_chunked_adaptive")
+
+
+def ascending_lane(R: int, kind: str, seed: int, esc_every: int, tail: int = 37):
+    """(values int32[R * 128 - tail], n_out): an ascending dst lane whose
+    chunks carry ``kind``'s deltas.  ``int8``: small gaps, int8 escapes in
+    two chunks of three; ``int16``: 12 int16-sized gaps per chunk, int16
+    escapes (1-8) in one chunk of ``esc_every``; ``mixed``: narrow,
+    narrow with int8 escapes, wide, wide with int16 escapes, in turn.
+    Values past the 90th percentile are cut to ``n_out`` (pads)."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.integers(0, 3, (R, 128)).astype(np.int64)
+    for r in range(R):
+        cols = rng.permutation(np.arange(1, 128))
+        j = 1 + r % 8
+        role = r % 4 if kind == "mixed" else {"int8": 1, "int16": 3}[kind]
+        if role == 1 and r % 3 != 2:
+            gaps[r, cols[:j]] = rng.integers(128, 1000, j)
+        if role in (2, 3):
+            gaps[r, cols[j:j + 12]] = rng.integers(200, 1000, 12)
+        if role == 3 and r % esc_every == esc_every - 1:
+            gaps[r, cols[:j]] = rng.integers(32_768, 40_000, j)
+    vals = np.cumsum(gaps.reshape(-1))[: R * 128 - tail]
+    n_out = int(vals[int(0.9 * vals.size)])
+    return np.minimum(vals, n_out).astype(np.int32), n_out
+
+
+def chunked_call(s, msg, n_out, w=None, plain=False):
+    """The chunked kernel for stream ``s``'s layout (or its plain version)."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    args = (s.anchors, s.deltas, s.ovf_pos, s.ovf_add)
+    if plain:
+        if w is None:
+            return sr.segment_sum_sorted_chunked_plain(*args, msg, n_out, s.hi, s.wide)
+        return sr.segment_sum_weighted_chunked_plain(*args, w, msg, n_out, s.hi, s.wide)
+    if s.hi is None:
+        if w is None:
+            return sr.segment_sum_sorted_chunked(*args, msg, n_out)
+        return sr.segment_sum_weighted_chunked(*args, w, msg, n_out)
+    a, d, p, v = args
+    if w is None:
+        return sr.segment_sum_sorted_chunked_adaptive(a, d, s.hi, s.wide, p, v, msg, n_out)
+    return sr.segment_sum_weighted_chunked_adaptive(a, d, s.hi, s.wide, p, v, w, msg, n_out)
+
+
+def chunked_name(s, weighted: bool) -> str:
+    return ("segment_sum_weighted_chunked" if weighted else "segment_sum_chunked") + (
+        "_adaptive" if s.hi is not None else "")
+
+
+def phase_compressed_kernels() -> None:
+    import torch
+
+    from repro_torch.core import compressed as cz
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for R, D in [(1, 1), (1, 8), (1, 64), (1001, 1), (1001, 8), (1001, 64), (7919, 1), (7919, 8)]:
+        for layout, kind in (("fixed1", "int8"), ("fixed2", "int16"), ("adaptive", "mixed"),
+                             ("adaptive_h0", "int8")):
+            vals, n_out = ascending_lane(R, kind, seed=R * 7 + D,
+                                         esc_every=3 if R < 1000 else 16 if R < 5000 else 61)
+            lane = torch.from_numpy(vals).cuda()
+            if layout.startswith("fixed"):
+                s = cz.encode_stream(lane, width=int(layout[-1]))
+            else:
+                hi_cap = 0
+                if layout == "adaptive":  # spare hi rows past the wide count
+                    hi_cap = int(cz.encode_stream_adaptive(lane, hi_cap=R).wide.sum()) + 3
+                s = cz.encode_stream_adaptive(lane, hi_cap=hi_cap)
+            if bool(s.spill):
+                raise AssertionError(f"compressed_kernels: {layout} R={R} spilled")
+            msg = torch.randn((R * 128, D), generator=gen, device="cuda")
+            w = torch.rand((R * 128,), generator=gen, device="cuda")
+            row = {"layout": layout, "R": R, "D": D, "n_out": n_out,
+                   "escapes": int((s.ovf_pos < 128).sum()),
+                   "wide": 0 if s.wide is None else int(s.wide.sum()), "hi_rows": s.hi_cap}
+            for weighted in (False, True):
+                wt = w if weighted else None
+                name = chunked_name(s, weighted)
+                row[f"{name}_max_abs_err"] = check_close(
+                    chunked_call(s, msg, n_out, wt), chunked_call(s, msg, n_out, wt, plain=True),
+                    f"{name} {layout} R={R} D={D}")
+            rows.append(row)
+    for r in rows:
+        if r["R"] > 1 and r["escapes"] == 0:
+            raise AssertionError(f"compressed_kernels: no escapes in {r}")
+    emit({"phase": "compressed_kernels", "tolerance": "rtol 1e-5, atol 1e-6*max|out|",
+          "cases": rows, "phase_s": time.perf_counter() - t0})
+
+
+def phase_compressed_stream(plain_stream) -> dict:
+    import torch
+
+    from repro_torch.core import compressed as cz
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.core import graph as G
+    from repro_torch.core import streaming as st
+    from repro_torch.core.traversal import CompressedEngine, flat_graph_of
+    from repro_torch.data.rmat import rmat_communities
+    from repro_torch.kernels import segment_reduce as sr
+
+    t_phase = time.perf_counter()
+    out = {"phase": "compressed_stream"}
+    # the reference's layout cannot hold plain rMAT at 2^18: both raise
+    v = plain_stream.acquire()
+    try:
+        st.AspenStream(v.graph, compressed=True, device="cuda")
+        raise AssertionError("compressed_stream: plain rMAT 2^18 did not raise")
+    except ValueError as e:
+        out["plain_rmat_2^18_raises"] = str(e)
+    finally:
+        plain_stream.release(v)
+
+    log_c, n_comm, batch, n_batches = 15, 8, 10_000, 4
+    n = n_comm << log_c
+    rng = np.random.default_rng(SEED + 1)
+    E0 = rmat_communities(log_c, n_comm, 8, seed=10)
+    base, updates = st.make_update_stream(E0, n_batches * batch + batch, seed=5)
+    t0 = time.perf_counter()
+    stream = st.AspenStream(G.build_graph(n, base), compressed=True, device="cuda")
+    out.update(n=n, communities=n_comm, community_vertices=1 << log_c,
+               edges_generated=int(E0.shape[0]), tree_and_mirror_build_s=time.perf_counter() - t0)
+
+    mirror_s, publish_s, check_s, pr_rel = [], [], [], [0.0]
+
+    def timed_mirror(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            mirror_s.append(time.perf_counter() - t)
+            return res
+        return run
+
+    stream._mirror_insert = timed_mirror(stream._mirror_insert)
+    stream._mirror_delete = timed_mirror(stream._mirror_delete)
+
+    def mirror():
+        v = stream.acquire()
+        try:
+            return v.aux[st.MIRROR]
+        finally:
+            stream.release(v)
+
+    def check_version() -> None:
+        t = time.perf_counter()
+        cg = mirror()
+        if not isinstance(cg, fg.CompressedPool) or bool(cg.dst.spill):
+            raise AssertionError("compressed_stream: the mirror is not a sound CompressedPool")
+        eng_np = stream.engine("numpy")  # its snapshot is the version's tree, flattened
+        got, want = fg.decompress(cg), flat_graph_of(eng_np.snap, device="cuda")
+        m = int(want.m)
+        if not (int(got.m) == m and torch.equal(got.keys[:m], want.keys[:m])
+                and torch.equal(got.offsets, want.offsets)
+                and bool((got.keys[m:] == fg.SENT64).all())
+                and (want.weights is None or torch.equal(got.weights[:m], want.weights[:m]))):
+            raise AssertionError("compressed_stream: decompress(mirror) differs from a rebuild")
+        eng = stream.engine("torch")
+        if not isinstance(eng, CompressedEngine):
+            raise AssertionError(f"compressed_stream: engine is {type(eng).__name__}")
+        srcs = rng.choice(np.flatnonzero(eng_np.degrees > 0), 16, replace=False)
+        if not np.array_equal(stream.query_batch(srcs, kind="bfs"),
+                              stream.query_batch(srcs, kind="bfs", backend="numpy")):
+            raise AssertionError("compressed_stream: bfs parents differ from the numpy engine")
+        resets = rng.random((8, n))
+        resets /= resets.sum(1, keepdims=True)
+        got = stream.query_batch(kind="pagerank", resets=resets)
+        want = stream.query_batch(kind="pagerank", backend="numpy", resets=resets)
+        atol = 1e-6 * float(np.abs(want).max())
+        pr_rel[0] = max(pr_rel[0], float((np.abs(got - want) / np.maximum(np.abs(want), atol)).max()))
+        if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=PR_RTOL, atol=atol)):
+            raise AssertionError(f"compressed_stream: pagerank off (rel {pr_rel[0]})")
+        if not np.array_equal(stream.query_batch(srcs[:4], kind="sssp"),
+                              stream.query_batch(srcs[:4], kind="sssp", backend="numpy")):
+            raise AssertionError("compressed_stream: sssp distances differ from the numpy engine")
+        check_s.append(time.perf_counter() - t)
+
+    def publish(fn, *args, **kw):
+        t = time.perf_counter()
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        publish_s.append(time.perf_counter() - t)
+
+    sr.reset_launches()
+    for b in range(n_batches):  # each batch: an insert publish, then a delete publish
+        rows = updates[b * batch:(b + 1) * batch]
+        publish(stream.insert_edges, rows[rows[:, 2] == 0, :2])
+        check_version()
+        publish(stream.delete_edges, rows[rows[:, 2] == 1, :2])
+        check_version()
+    wedges = updates[n_batches * batch:(n_batches + 1) * batch, :2]
+    weights = rng.integers(1, 10, size=wedges.shape[0]).astype(np.float64)
+    publish(stream.insert_edges, wedges, weights=weights)
+    check_version()
+    launches = dict(sr.LAUNCHES)
+    for name in ("segment_sum_chunked_adaptive", "segment_sum_weighted_chunked_adaptive"):
+        if launches[name] == 0:
+            raise AssertionError(f"compressed_stream: {name} was never launched: {launches}")
+    kernel_check = compressed_stream_kernel_check(stream.engine("torch"))
+
+    cg = mirror()
+    stats = fg.chunk_stats(fg.decompress(cg))
+    spare = cg.dst.hi_cap - int(cg.dst.wide.sum())
+    resident = cz.stream_nbytes(cg.dst)
+    if resident != stats["bytes_ideal"] + spare * 128:
+        raise AssertionError(f"compressed_stream: {resident} resident bytes, bytes_ideal "
+                             f"{stats['bytes_ideal']} + {spare} spare hi rows")
+    m = int(cg.m)
+    out.update(
+        m=m, batches=n_batches + 1, updates_per_batch=batch, publishes=len(publish_s),
+        versions_checked=len(publish_s), pagerank_max_rel_err=pr_rel[0], pagerank_rtol=PR_RTOL,
+        mean_publish_s=float(np.mean(publish_s)), mean_mirror_step_s=float(np.mean(mirror_s)),
+        checks_s=float(np.sum(check_s)),
+        spill_heals=stream.spill_heals, dst_bytes=resident, bytes_ideal=stats["bytes_ideal"],
+        spare_hi_rows=spare, dst_bytes_per_edge=resident / m,
+        raw_key_bytes_per_edge=8 * cg.edge_capacity / m,
+        wide_chunks=int(cg.dst.wide.sum()), chunks=cg.dst.deltas.shape[0],
+        kernel_check=kernel_check, launches=launches, phase_s=time.perf_counter() - t_phase,
+    )
+    emit(out)
+    return launches
+
+
+def compressed_stream_kernel_check(eng) -> dict:
+    """``stream_kernel_check`` for the compressed stream's last (weighted)
+    version: the engine's ``edge_map_reduce`` (D = 1) and
+    ``edge_map_reduce_batch`` (D = 8) against the weighted chunked plain
+    version on the same ``dst_sorted_c`` lane and messages, and the
+    unweighted chunked kernel on that lane against its plain version."""
+    import torch
+
+    from repro_torch.core import compressed as cz
+    from repro_torch.core.traversal import torch_backend as tb
+
+    a, n = eng.caux, eng.cg.n
+    if a.w_by_dst is None:
+        raise AssertionError("compressed_stream: the weighted batch left the mirror unweighted")
+    s = a.dst_sorted_c
+    if s.hi is None:
+        raise AssertionError("compressed_stream: the aux dst lane is not adaptive")
+    src_by_dst = cz.decode_stream(a.srcbd_c)
+    valid = torch.arange(src_by_dst.shape[0], device=src_by_dst.device) < a.m_valid
+    gen = torch.Generator(device=src_by_dst.device).manual_seed(SEED)
+    vals = torch.rand((8, n), generator=gen, device=src_by_dst.device)
+    msg = tb._reduce_msgs_batch(vals, src_by_dst, valid)
+    out = {"R": s.deltas.shape[0], "wide": int(s.wide.sum()), "hi_rows": s.hi_cap,
+           "escapes": int((s.ovf_pos < cz.CHUNK).sum())}
+    for D in (1, 8):
+        got = eng.edge_map_reduce(vals[0]) if D == 1 else eng.edge_map_reduce_batch(vals)
+        m = msg[:, :D].contiguous()
+        out[f"segment_sum_weighted_chunked_adaptive_D{D}_max_abs_err"] = check_close(
+            got.reshape(-1, n).T, chunked_call(s, m, n, a.w_by_dst, plain=True),
+            f"compressed_stream edge_map_reduce D={D}")
+        out[f"segment_sum_chunked_adaptive_D{D}_max_abs_err"] = check_close(
+            chunked_call(s, m, n), chunked_call(s, m, n, plain=True),
+            f"compressed_stream segment_sum_chunked_adaptive D={D}")
+    return out
+
+
+def plain_scale_graph_raises(g) -> str:
+    """``compress_host``'s error on the scale phase's plain rMAT 2^22 graph:
+    the reference's layout cannot hold it either."""
+    from repro_torch.core import flat_graph as fg
+
+    try:
+        fg.compress_host(g)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("compressed_scale: plain rMAT 2^22 did not raise")
+
+
+def chunked_bound(s, e_valid: int, n_out: int, D: int, weighted: bool):
+    """``bound`` with the dst read at the stream's real bytes."""
+    from repro_torch.core import compressed as cz
+
+    nbytes = cz.stream_nbytes(s) + e_valid * (4 * D + (4 if weighted else 0)) + n_out * 4 * D
+    flops = e_valid * D * (2 if weighted else 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_compressed_scale(plain_raises: str) -> tuple:
+    import torch
+
+    from repro_torch.core import compressed as cz
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.core.traversal import algorithms as talg
+    from repro_torch.core.traversal import torch_backend as tb
+    from repro_torch.kernels import segment_reduce as sr
+
+    t_phase = time.perf_counter()
+    out = {"phase": "compressed_scale", "plain_rmat_2^22_raises": plain_raises,
+           "allocated_at_start_bytes": torch.cuda.memory_allocated()}
+
+    log_c, n_comm = 15, 128
+    n = n_comm << log_c
+    t0 = time.perf_counter()
+    edges = rmat_symmetric_device(log_c, 2**25, seed=4, communities=n_comm)
+    out.update(n=n, communities=n_comm, community_vertices=1 << log_c,
+               edges_generated=int(edges.shape[0]), gen_s=time.perf_counter() - t0)
+    g = fg.from_edges(n, edges, device="cuda")
+    del edges
+    m, cap = int(g.m), g.edge_capacity
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    slot_valid = torch.arange(cap, device="cuda") < m
+    gw = g._replace(weights=torch.rand(cap, generator=gen, device="cuda") * slot_valid)
+    out.update(m=m, edge_capacity=cap, raw_pool_bytes_per_edge=8 * cap / m)
+    rng = np.random.default_rng(SEED + 4)
+    srcs = rng.choice(np.flatnonzero(torch.diff(g.offsets).cpu().numpy() > 0), 16, replace=False)
+    resets = rng.random((8, n))
+    resets /= resets.sum(1, keepdims=True)
+    iters = 10
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    raw = {}  # the raw engine on the same edges: answers and times
+    for tag, graph in (("plain", g), ("weighted", gw)):
+        eng = tb.TorchEngine(graph)
+        r = raw[tag] = {}
+        r["pr"], r["pagerank10_s"] = timed(lambda: talg.pagerank(eng, iters=iters))
+        r["prm"], r["pagerank_multi8_s"] = timed(
+            lambda: talg.pagerank_multi(eng, resets, iters=iters))
+        if tag == "plain":
+            (_, r["depths"]), r["bfs_batch16_s"] = timed(lambda: eng.bfs_batch(srcs))
+        r["resident_bytes_per_edge"] = eng.resident_nbytes / m
+        del eng
+    out["raw_engine"] = {tag: {k: v for k, v in r.items() if k.endswith(("_s", "_edge"))}
+                         for tag, r in raw.items()}
+
+    def close(got, want, what):
+        atol = 1e-6 * float(np.abs(want).max())
+        rel = float((np.abs(got - want) / np.maximum(np.abs(want), atol)).max())
+        if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=PR_RTOL, atol=atol)):
+            raise AssertionError(f"compressed_scale: {what} off (rel {rel})")
+        return rel
+
+    layouts, lanes = {}, {}
+    sr.reset_launches()
+    for name, graph, kw in (("adaptive", g, {}), ("fixed2", g, {"width": 2}),
+                            ("adaptive_weighted", gw, {}), ("fixed2_weighted", gw, {"width": 2})):
+        tag = "weighted" if graph is gw else "plain"
+        res = {}
+        cg, res["compress_s"] = timed(lambda: fg.compress_host(graph, **kw))
+        res["dst_bytes_per_edge"] = cz.stream_nbytes(cg.dst) / m
+        res["pool_bytes_per_edge"] = cz.pytree_nbytes(cg) / m
+        if name == "adaptive":
+            stats = fg.chunk_stats(graph)
+            if stats["bytes_ideal"] != cz.stream_nbytes(cg.dst):
+                raise AssertionError("compressed_scale: resident bytes != bytes_ideal")
+            res.update(bytes_ideal=stats["bytes_ideal"], wide_chunks=stats["n_wide"],
+                       chunks=stats["fixed_chunks"], escapes_i16=stats["escapes_i16"])
+        eng, res["engine_aux_s"] = timed(lambda: tb.CompressedEngine(cg))
+        res["resident_bytes_per_edge"] = eng.resident_nbytes / m
+        before = sum(sr.LAUNCHES.values())
+        pr, res["pagerank10_s"] = timed(lambda: talg.pagerank(eng, iters=iters))
+        res["launches_per_pagerank_iter"] = (sum(sr.LAUNCHES.values()) - before) / iters
+        res["pagerank_max_rel_err_vs_raw"] = close(pr, raw[tag]["pr"], f"{name} pagerank")
+        before = sum(sr.LAUNCHES.values())
+        prm, res["pagerank_multi8_s"] = timed(lambda: talg.pagerank_multi(eng, resets, iters=iters))
+        res["launches_per_pagerank_multi_iter"] = (sum(sr.LAUNCHES.values()) - before) / iters
+        res["pagerank_multi_max_rel_err_vs_raw"] = close(prm, raw[tag]["prm"], f"{name} multi")
+        (_, depths), res["bfs_batch16_s"] = timed(lambda: eng.bfs_batch(srcs))
+        if not torch.equal(depths, raw["plain"]["depths"]):  # the same edges either way
+            raise AssertionError(f"compressed_scale: {name} bfs depths differ from raw")
+        res["max_depth"] = int(depths.max())
+        layouts[name] = res
+        lanes[name] = eng.caux
+        del eng, cg
+        torch.cuda.empty_cache()
+    launches = dict(sr.LAUNCHES)
+    for k in CHUNKED_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"compressed_scale: {k} was never launched: {launches}")
+    out.update(layouts=layouts, launches=launches)
+
+    # each chunked kernel at these shapes (the dst-major lane of the
+    # layout's aux, n_out = n) against its plain version and against the
+    # raw kernel on the decoded lane; these launches are not counted above
+    cases = []
+    for name, caux in lanes.items():
+        s = caux.dst_sorted_c
+        weighted = caux.w_by_dst is not None
+        w = caux.w_by_dst
+        dec = cz.decode_stream(s)
+        e_valid = int((dec < n).sum())
+        for D in (1, 8):
+            msg = torch.rand((s.length, D), generator=gen, device="cuda")
+            kern = lambda: chunked_call(s, msg, n, w)  # noqa: E731
+            plain = lambda: chunked_call(s, msg, n, w, plain=True)  # noqa: E731
+            if weighted:
+                raw_k = lambda: sr.segment_sum_weighted_sorted(dec, w, msg, n)  # noqa: E731
+            else:
+                raw_k = lambda: sr.segment_sum_sorted(dec, msg, n)  # noqa: E731
+            err = check_close(kern(), plain(), f"compressed_scale {name} D={D}")
+            check_close(kern(), raw_k(), f"compressed_scale {name} vs raw kernel D={D}")
+            bound_ms, bound_by = chunked_bound(s, e_valid, n, D, weighted)
+            cases.append({
+                "name": chunked_name(s, weighted), "layout": name, "D": D, "R": s.deltas.shape[0],
+                "E_valid": e_valid, "n_out": n, "stream_bytes": cz.stream_nbytes(s),
+                "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                "raw_kernel_ms": time_ms(raw_k), "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+            })
+        del dec
+    out.update(kernels=cases, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches, cases
+
 
 def main() -> int:
     import torch
@@ -449,9 +902,17 @@ def main() -> int:
 
     phase_env(smi)
     phase_kernels()
-    stream_launches = phase_stream()
+    stream_launches, plain_stream = phase_stream()
     g, aux, scale_launches = phase_scale()
     cases = phase_scale_kernels(g, aux)
+    plain_raises = plain_scale_graph_raises(g)
+    del g, aux  # the 2^22 flat scale graph leaves the card here
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_compressed_kernels()
+    cstream_launches = phase_compressed_stream(plain_stream)
+    del plain_stream
+    cscale_launches, ccases = phase_compressed_scale(plain_raises)
 
     summary = []
     for name in ("segment_sum", "segment_sum_weighted"):
@@ -469,6 +930,23 @@ def main() -> int:
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
+        })
+    replaces = dict(zip(CHUNKED_KERNELS, ("229", "271", "410", "454")))
+    for name in CHUNKED_KERNELS:
+        c = next(c for c in ccases if c["name"] == name and c["D"] == 1)
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
+            "replaces": "src/repro/kernels/segment_reduce.py:" + replaces[name],
+            "launches": cstream_launches[name] + cscale_launches[name],
+            "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None,
+            "raw_kernel_ms": c["raw_kernel_ms"],
         })
     print(smi, flush=True)
     emit({"kernels": summary})

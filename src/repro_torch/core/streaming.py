@@ -7,7 +7,8 @@ new version published with SET; readers ACQUIRE snapshots and never
 block.
 
 Dual representation: alongside the host C-tree ``Graph``, every version
-carries a device-resident ``FlatGraph`` mirror kept current
+carries a device-resident ``FlatGraph`` mirror (with ``compressed=True``
+a chunk-compressed ``CompressedPool``, paper §3.2) kept current
 incrementally — each edge batch is applied to the tree AND sorted,
 deduped and rank-merged into the mirror on the device, then both are
 published atomically as ONE version.  ``engine("torch")`` over an
@@ -17,10 +18,8 @@ mirror.  Every edge publish records its batch as a
 ``versioning.Delta``.
 
 Not ported yet (ROADMAP.md queue 1): ``subscribe`` / ``Subscription``
-and the incremental query paths (item 5), the compressed mirror
-(``compressed=True``, item 7) and the sharded mirror
-(``mirror="sharded"``, item 8); those arguments raise
-``NotImplementedError``.
+and the incremental query paths, and the sharded mirror
+(``mirror="sharded"``, which raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -39,6 +38,10 @@ from . import graph as G
 from .versioning import DELTA, Delta, Version, VersionedGraph
 
 MIRROR = "flat"  # aux key of the FlatGraph mirror on a Version
+# hi-plane slack for adaptive compressed mirrors: fraction of chunk rows
+# reserved beyond the exact wide-chunk count at each rebuild, so
+# recompression absorbs width drift between full rebuilds
+HI_HEADROOM = 1 / 16
 QUERY_KINDS = ("bfs", "distances", "bc", "sssp", "pagerank")
 
 
@@ -150,23 +153,29 @@ class AspenStream:
         compressed: bool = False,
         device=None,
     ):
-        """Keeps the resident FlatGraph mirror on ``device`` (``None`` =
-        cuda) alongside the tree; ``mirror`` must be ``True`` / ``"flat"``
-        (the only mirror ported so far)."""
+        """Keeps the resident mirror on ``device`` (``None`` = cuda)
+        alongside the tree; ``mirror`` must be ``True`` / ``"flat"`` (the
+        only mirror ported so far).
+
+        ``compressed=True`` keeps the mirror chunk-compressed
+        (``flat_graph.CompressedPool``, adaptive widths with
+        ``HI_HEADROOM`` spare hi rows): each edge batch decompresses,
+        rank-merges and recompresses, so the resident state is always a
+        few bytes per edge, and ``engine("torch")`` serves a
+        ``CompressedEngine``.  Construction raises ``ValueError`` when
+        the graph spills the layout's escape lane (``compress_host``)."""
         if mirror == "sharded":
             raise NotImplementedError(
-                "the sharded mirror is not ported yet (ROADMAP.md queue 1 item 8)"
-            )
-        if compressed:
-            raise NotImplementedError(
-                "the compressed mirror is not ported yet (ROADMAP.md queue 1 item 7)"
+                "the sharded mirror is not ported yet (ROADMAP.md queue 1 item 12)"
             )
         if mirror not in (True, MIRROR):
             raise ValueError(f"mirror must be True or 'flat'; got {mirror!r}")
         self.device = resolve(device)
+        self._compressed = compressed
+        self.spill_heals = 0  # compressed mirrors rebuilt after an update spilled
         g0 = initial if initial is not None else G.empty(b, seed)
         self.vg: VersionedGraph[G.Graph] = VersionedGraph(
-            g0, aux={MIRROR: self._flat_from_tree(g0)}
+            g0, aux={MIRROR: self._mirror_from_tree(g0)}
         )
         self._wlock = threading.Lock()  # serializes writers (incl. mirror merge)
 
@@ -177,6 +186,16 @@ class AspenStream:
         from .traversal import flat_graph_of
 
         return flat_graph_of(G.flat_snapshot(g), device=self.device)
+
+    def _mirror_from_tree(self, g: G.Graph):
+        """Full mirror rebuild in the stream's representation.  On
+        compressed streams it is also the spill recovery point:
+        ``compress_host`` re-selects widths and re-sizes the hi plane from
+        scratch, and raises rather than publish a mis-decoding mirror."""
+        flat = self._flat_from_tree(g)
+        if self._compressed:
+            return fg.compress_host(flat, hi_headroom=HI_HEADROOM)
+        return flat
 
     def _device_batch(self, edges: np.ndarray, weights: Optional[np.ndarray] = None):
         """Pack an edge batch and ship it to the device at a power-of-two
@@ -193,41 +212,63 @@ class AspenStream:
         wpad[: keys.size] = weights
         return fct.from_device(dev_keys, cap, vals=torch.from_numpy(wpad).to(self.device))
 
-    def _mirror_insert(self, mirror: fg.FlatGraph, g_old: G.Graph, edges: np.ndarray,
-                       weights: Optional[np.ndarray] = None) -> fg.FlatGraph:
+    def _mirror_insert(self, mirror, g_old: G.Graph, edges: np.ndarray,
+                       weights: Optional[np.ndarray] = None):
         """Apply an insert batch to the mirror on the device: sort/dedup the
-        batch, rank-merge.  Capacity and vertex growth come from host-known
-        counts (the tree's edge count, the batch's max source), so no
-        device->host read is needed.  A weighted batch against an
-        unweighted mirror upgrades it to unit weights first."""
+        batch, rank-merge (compressed: decompress, merge, recompress).
+        Capacity and vertex growth come from host-known counts (the tree's
+        edge count, the batch's max source), so no device->host read is
+        needed.  A weighted batch against an unweighted mirror upgrades it
+        to unit weights first."""
         if edges.shape[0] == 0:
             return mirror
+        compressed = isinstance(mirror, fg.CompressedPool)
         if weights is not None and mirror.weights is None:
-            mirror = fg.with_unit_weights(mirror)
+            mirror = (fg.with_unit_weights_compressed(mirror) if compressed
+                      else fg.with_unit_weights(mirror))
         batch = self._device_batch(edges, weights)
         # vertices are created by their first out-edge (matching the tree)
         n_out = max(mirror.n, int(edges[:, 0].max()) + 1)
         need = G.num_edges(g_old) + edges.shape[0]
         cap = max(mirror.edge_capacity, fct.grown_capacity(need))
-        return fg.insert_edges_device(mirror, batch, cap, n_out=None if n_out == mirror.n else n_out)
+        n_out = None if n_out == mirror.n else n_out
+        if compressed:
+            return fg.insert_edges_compressed(mirror, batch, cap, n_out)
+        return fg.insert_edges_device(mirror, batch, cap, n_out=n_out)
 
-    def _mirror_delete(self, mirror: fg.FlatGraph, edges: np.ndarray) -> fg.FlatGraph:
+    def _mirror_delete(self, mirror, edges: np.ndarray):
         if edges.shape[0] == 0:
             return mirror
+        if isinstance(mirror, fg.CompressedPool):
+            return fg.delete_edges_compressed(mirror, self._device_batch(edges),
+                                              mirror.edge_capacity)
         return fg.delete_edges_device(mirror, self._device_batch(edges))
+
+    def _heal_spill(self, m, g2: G.Graph):
+        """Compressed-mirror self-heal: an incremental recompression can
+        overflow the escape lane or the hi plane, which the update folds
+        into the sticky ``spill`` flag.  One flag read per publish catches
+        it, and the mirror is rebuilt from the tree BEFORE the spilled
+        state can be published: readers never see a mis-decoding mirror."""
+        if not isinstance(m, fg.CompressedPool) or not bool(m.dst.spill):
+            return m
+        self.spill_heals += 1
+        return self._mirror_from_tree(g2)
 
     def _publish(self, tree_fn, mirror_fn, delta: Optional[Delta] = None) -> Version[G.Graph]:
         """One writer transaction: update tree + mirror from the held
         version, publish both atomically as a single new version, with
         ``delta`` riding the version's aux under ``versioning.DELTA``.  A
         held version without a mirror (published through the raw ``vg``
-        writer API) gets one rebuilt from the new tree."""
+        writer API) gets one rebuilt from the new tree; a compressed
+        mirror that spilled is rebuilt too (``_heal_spill``)."""
 
         def txn(v: Version[G.Graph]):
             g2 = tree_fn(v.graph)
             aux = {} if delta is None else {DELTA: delta}
             m = v.aux.get(MIRROR)
-            aux[MIRROR] = mirror_fn(m, v.graph, g2) if m is not None else self._flat_from_tree(g2)
+            m2 = mirror_fn(m, v.graph, g2) if m is not None else self._mirror_from_tree(g2)
+            aux[MIRROR] = self._heal_spill(m2, g2)
             return g2, aux
 
         with self._wlock:
@@ -269,13 +310,13 @@ class AspenStream:
         # vertex-set ops are rare: the mirror takes the rebuild path
         return self._publish(
             lambda g: G.insert_vertices(g, vs),
-            lambda m, g_old, g_new: self._flat_from_tree(g_new),
+            lambda m, g_old, g_new: self._mirror_from_tree(g_new),
         )
 
     def delete_vertices(self, vs: np.ndarray):
         return self._publish(
             lambda g: G.delete_vertices(g, vs),
-            lambda m, g_old, g_new: self._flat_from_tree(g_new),
+            lambda m, g_old, g_new: self._mirror_from_tree(g_new),
         )
 
     # -- read API -----------------------------------------------------------
@@ -293,18 +334,21 @@ class AspenStream:
             self.release(v)
 
     def flat_graph(self) -> fg.FlatGraph:
-        """The current version's FlatGraph (the resident mirror)."""
+        """The current version's FlatGraph: the resident mirror (a
+        compressed mirror is decompressed on the way out)."""
         v = self.acquire()
         try:
-            return v.aux[MIRROR]
+            m = v.aux[MIRROR]
+            return fg.decompress(m) if isinstance(m, fg.CompressedPool) else m
         finally:
             self.release(v)
 
     def engine(self, backend: str = "numpy"):
         """Traversal engine over the current version: ``"numpy"`` -> a
         NumpyEngine over a FlatSnapshot (CPU); ``"torch"`` -> a
-        TorchEngine over the version's resident mirror.  Engines are
-        cached per (version, backend) and die with the version."""
+        TorchEngine (compressed streams: a CompressedEngine) over the
+        version's resident mirror.  Engines are cached per (version,
+        backend) and die with the version."""
         v = self.acquire()
         try:
             return self._engine_for(v, backend)

@@ -36,7 +36,7 @@ from .numpy_backend import (
     from_ids,
     gather_csr,
 )
-from .torch_backend import TorchEngine
+from .torch_backend import CompressedEngine, TorchEngine
 
 __all__ = [
     "DENSE_THRESHOLD_DENOM",
@@ -46,6 +46,7 @@ __all__ = [
     "dense_threshold",
     "NumpyEngine",
     "TorchEngine",
+    "CompressedEngine",
     "VertexSubset",
     "edge_map",
     "engine_of",
@@ -74,20 +75,25 @@ def make_engine(obj, backend: str | None = None, device=None) -> TraversalEngine
     """Engine for a snapshot object, dispatched on type (or forced by
     ``backend`` in {"numpy", "torch"}).
 
-    A ``FlatGraph`` gives a ``TorchEngine`` on the graph's own device;
-    anything with the FlatSnapshot protocol gives a ``NumpyEngine``, or
-    with ``backend="torch"`` a ``TorchEngine`` over a FlatGraph rebuilt
-    on ``device`` (``None`` = cuda); a tree-level ``Graph`` is
-    snapshotted first.  The sharded engine is not ported yet."""
-    from ..flat_graph import FlatGraph
+    A ``FlatGraph`` gives a ``TorchEngine`` on the graph's own device, a
+    ``CompressedPool`` a ``CompressedEngine``; anything with the
+    FlatSnapshot protocol gives a ``NumpyEngine``, or with
+    ``backend="torch"`` a ``TorchEngine`` over a FlatGraph rebuilt on
+    ``device`` (``None`` = cuda); a tree-level ``Graph`` is snapshotted
+    first.  The sharded engine is not ported yet."""
+    from ..flat_graph import CompressedPool, FlatGraph
     from ..graph import Graph, flat_snapshot
 
     if backend == "sharded":
         raise NotImplementedError(
-            "the sharded engine is not ported yet (ROADMAP.md queue 1 item 8)"
+            "the sharded engine is not ported yet (ROADMAP.md queue 1 item 12)"
         )
     if backend not in (None, "numpy", "torch"):
         raise ValueError(f"unknown backend {backend!r}; expected 'numpy' or 'torch'")
+    if isinstance(obj, CompressedPool):
+        if backend == "numpy":
+            raise TypeError("CompressedPool is device-native; decompress first")
+        return CompressedEngine(obj)
     if isinstance(obj, FlatGraph):
         if backend == "numpy":
             raise TypeError("FlatGraph is device-native; build a FlatSnapshot for numpy")

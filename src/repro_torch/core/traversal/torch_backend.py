@@ -1,7 +1,8 @@
-"""PyTorch traversal backend over ``FlatGraph`` (the packed-key pool).
+"""PyTorch traversal backend over ``FlatGraph`` (the packed-key pool) and
+``CompressedPool`` (the chunk-compressed pool).
 
-Counterpart of the raw half of ``repro/core/traversal/jax_backend.py``
-(lines 81-1148).  Ligra's edgeMap maps onto the flat pool the same way:
+Counterpart of ``repro/core/traversal/jax_backend.py`` (lines 81-1479).
+Ligra's edgeMap maps onto the flat pool the same way:
 
   * dense ("pull") direction: every pool slot looks up whether its
     source is in the frontier — one gather plus one masked scatter.  The
@@ -30,6 +31,12 @@ Where the reference differs from eager PyTorch:
     (ROADMAP.md §3).  The integer BFS pull keeps the prefix sum, which is
     exact.
 
+``CompressedEngine`` serves the same query loops from a compressed resident
+snapshot: each query decodes the pool and the aux lanes with torch ops
+(``_inflate``; the reference does the same decode in XLA, with no Pallas
+kernel), except ``edge_map_reduce``, whose chunked segment-sum kernels
+decode the dst lane inside the kernel.
+
 Precision: state and reduces are float32, the reference's default.
 """
 from __future__ import annotations
@@ -41,7 +48,8 @@ import numpy as np
 import torch
 
 from ...kernels import ops as kops
-from ..flat_graph import FlatGraph, unpack
+from .. import compressed as cz
+from ..flat_graph import CompressedPool, FlatGraph, decompress, unpack
 from .base import DENSE_THRESHOLD_DENOM, HOST_SYNCS, ArrayOps, TraversalEngine
 
 
@@ -514,19 +522,28 @@ class TorchEngine(TraversalEngine):
 
     def __init__(self, g: FlatGraph, aux: Optional[EngineAux] = None):
         self.g = g
-        self._n = g.n
-        self._m = int(g.m)
-        cap = g.edge_capacity
-        self.ops = TorchOps(g.device)
         self.aux = engine_aux(g) if aux is None else aux
+        self._setup(g.n, int(g.m), g.edge_capacity, g.device, self.aux.degrees)
+
+    def _setup(self, n: int, m: int, cap: int, device: torch.device, degrees) -> None:
+        self._n = n
+        self._m = m
+        self.device = device
+        self.ops = TorchOps(device)
+        self._degrees = degrees
         self._wdeg = None  # lazy weighted out-degree cache
         # static sparse budgets: a frontier routed sparse obeys
         # |U| + deg(U) <= m/20 <= cap/20.  Forced-sparse mode needs full
         # budgets.
-        self._auto_ids_budget = min(self._n, _round_up(cap // DENSE_THRESHOLD_DENOM + 1, 64))
+        self._auto_ids_budget = min(n, _round_up(cap // DENSE_THRESHOLD_DENOM + 1, 64))
         self._auto_edge_budget = min(cap, _round_up(cap // DENSE_THRESHOLD_DENOM + 1, 64))
-        self._full_ids_budget = self._n
+        self._full_ids_budget = n
         self._full_edge_budget = max(cap, 1)
+
+    def _views(self) -> Tuple[FlatGraph, EngineAux]:
+        """The raw pool and aux every query reads (``CompressedEngine``
+        decodes them per query)."""
+        return self.g, self.aux
 
     # -- graph shape --------------------------------------------------------
     @property
@@ -539,7 +556,7 @@ class TorchEngine(TraversalEngine):
 
     @property
     def degrees(self) -> torch.Tensor:
-        return self.aux.degrees
+        return self._degrees
 
     @property
     def weights(self) -> Optional[torch.Tensor]:
@@ -550,11 +567,12 @@ class TorchEngine(TraversalEngine):
     def weighted_degrees(self) -> torch.Tensor:
         """Sum of out-edge weights per vertex: a true segment sum over the
         src-major pool on the kernel (cached per engine)."""
-        if self.g.weights is None:
-            return self.aux.degrees.float()
+        if self.weights is None:
+            return self._degrees.float()
         if self._wdeg is None:
-            msg = torch.where(self.aux.evalid, self.g.weights, 0)
-            self._wdeg = _segsum_rows_float(msg[None, :], _src_key(self.g), self._n)[0]
+            g, a = self._views()
+            msg = torch.where(a.evalid, g.weights, 0)
+            self._wdeg = _segsum_rows_float(msg[None, :], _src_key(g), self._n)[0]
         return self._wdeg
 
     @property
@@ -565,11 +583,11 @@ class TorchEngine(TraversalEngine):
 
     # -- frontiers ----------------------------------------------------------
     def _subset(self, dense: torch.Tensor) -> TorchVertexSubset:
-        return TorchVertexSubset(dense, self.aux.degrees)
+        return TorchVertexSubset(dense, self._degrees)
 
     def frontier_from_ids(self, ids) -> TorchVertexSubset:
-        mask = torch.zeros(self._n, dtype=torch.bool, device=self.g.device)
-        mask[_lanes(ids, self.g.device)] = True
+        mask = torch.zeros(self._n, dtype=torch.bool, device=self.device)
+        mask[_lanes(ids, self.device)] = True
         return self._subset(mask)
 
     def frontier_from_dense(self, mask) -> TorchVertexSubset:
@@ -596,49 +614,50 @@ class TorchEngine(TraversalEngine):
             size, deg = U.stats()
             mode = "dense" if size + deg > max(1, self._m // DENSE_THRESHOLD_DENOM) else "sparse"
         ops = self.ops
-        a = self.aux
-        cmask = C(ops, state, torch.arange(self._n, dtype=torch.int32, device=self.g.device))
+        g, a = self._views()
+        cmask = C(ops, state, torch.arange(self._n, dtype=torch.int32, device=self.device))
         if mode == "dense":
             valid = a.evalid & U.dense[a.src_c.long()] & cmask[a.dst_c.long()]
-            state, out = F(ops, state, a.src_c, a.dst_c, self.g.weights, valid)
+            state, out = F(ops, state, a.src_c, a.dst_c, g.weights, valid)
         else:
             ids_b, edge_b = self._budgets(mode)
             us, vs, ev, eidx = _sparse_expand(
-                self.g.offsets, self.g.keys, U.dense[None, :], self._n, ids_b, edge_b
+                g.offsets, g.keys, U.dense[None, :], self._n, ids_b, edge_b
             )
             us, vs, ev, eidx = us[0], vs[0], ev[0], eidx[0]
-            ws = None if self.g.weights is None else self.g.weights[eidx]
+            ws = None if g.weights is None else g.weights[eidx]
             state, out = F(ops, state, us, vs, ws, ev & cmask[vs.long()])
         return self._subset(out), state
 
     # -- batched traversals -------------------------------------------------
     def bfs_batch(self, sources) -> Tuple[torch.Tensor, torch.Tensor]:
         """(parents, depths) int32[B, n] (see module-level ``bfs_batch``)."""
-        return bfs_batch(self.g, self.aux, sources, ids_budget=self._auto_ids_budget,
+        return bfs_batch(*self._views(), sources, ids_budget=self._auto_ids_budget,
                          edge_budget=self._auto_edge_budget)
 
     def bc_batch(self, sources) -> torch.Tensor:
         """Dependency scores float[B, n] (see module-level ``bc_batch``)."""
-        return bc_batch(self.g, self.aux, sources)
+        return bc_batch(*self._views(), sources)
 
     def sssp_batch(self, sources) -> torch.Tensor:
         """Shortest-path distances float[B, n] (+inf = unreached)."""
-        return sssp_batch(self.g, self.aux, sources, ids_budget=self._auto_ids_budget,
+        return sssp_batch(*self._views(), sources, ids_budget=self._auto_ids_budget,
                           edge_budget=self._auto_edge_budget)
 
     def sssp_batch_from(self, dist0, frontier0, unit: bool = False) -> torch.Tensor:
         """Warm-start (min, +) relaxation from arbitrary initial state."""
-        return sssp_batch_from(self.g, self.aux, dist0, frontier0,
+        return sssp_batch_from(*self._views(), dist0, frontier0,
                                ids_budget=self._auto_ids_budget,
                                edge_budget=self._auto_edge_budget, unit=unit)
 
     def parents_from_depths(self, depths) -> torch.Tensor:
         """BFS parents from depth rows (the max-contention rule of ``bfs_batch``)."""
-        return _parents_pass(self.g, self.aux, np.asarray(depths, np.int32))
+        return _parents_pass(*self._views(), np.asarray(depths, np.int32))
 
     def cc_labels(self) -> torch.Tensor:
         """Whole-graph min-label CC to fixpoint over the prebuilt aux."""
-        return cc_labels(self.g, aux=self.aux)
+        g, a = self._views()
+        return cc_labels(g, aux=a)
 
     # -- dense semiring reduce (segment-sum kernels) ------------------------
     def edge_map_reduce(self, values: torch.Tensor) -> torch.Tensor:
@@ -665,7 +684,7 @@ class TorchEngine(TraversalEngine):
 
     # -- vertexMap ----------------------------------------------------------
     def vertex_map(self, U: TorchVertexSubset, P: Callable, state) -> TorchVertexSubset:
-        keep = P(self.ops, state, torch.arange(self._n, dtype=torch.int32, device=self.g.device))
+        keep = P(self.ops, state, torch.arange(self._n, dtype=torch.int32, device=self.device))
         return self._subset(U.dense & keep)
 
     def to_host(self, x) -> np.ndarray:
@@ -721,3 +740,156 @@ def cc_labels(g: FlatGraph, aux: Optional[EngineAux] = None) -> torch.Tensor:
         labels = new
         if not _sync(changed)[0]:
             return labels
+
+
+# ---------------------------------------------------------------------------
+# compressed engine: queries served from a chunk-compressed resident pool
+# ---------------------------------------------------------------------------
+
+
+class CompressedAux(NamedTuple):
+    """Per-snapshot derived state for ``CompressedEngine``: ``EngineAux``
+    with its two O(cap) int lanes chunk-compressed (``dst_sorted`` is
+    ascending, ``src_by_dst`` ascending within each dst segment).  The
+    O(n) arrays and the float value lane stay raw; ``valid_by_dst``
+    collapses to ``m_valid``, since valid slots are the sorted prefix."""
+
+    dst_sorted_c: cz.ChunkedStream  # destinations ascending (pad = n)
+    srcbd_c: cz.ChunkedStream  # sources permuted dst-major
+    dst_offsets: torch.Tensor  # int32[n+1] segment bounds into dst_sorted
+    degrees: torch.Tensor  # int32[n]
+    m_valid: torch.Tensor  # int32 0-dim: count of valid pool slots
+    w_by_dst: Optional[torch.Tensor] = None  # float32[capC] values dst-major
+
+
+def compressed_aux_from_state(dst_sorted_c, srcbd_c, dst_offsets, degrees, m_valid,
+                              w_by_dst=None, device=None) -> CompressedAux:
+    """The port's CompressedAux from the reference's leaves as numpy
+    arrays (each stream as its leaves in ``ChunkedStream`` order)."""
+    from ..._device import resolve
+
+    dev = resolve(device)
+    return CompressedAux(
+        cz.from_state(*dst_sorted_c, device=dev),
+        cz.from_state(*srcbd_c, device=dev),
+        torch.from_numpy(np.array(dst_offsets, np.int32)).to(dev),
+        torch.from_numpy(np.array(degrees, np.int32)).to(dev),
+        torch.tensor(int(m_valid), dtype=torch.int32, device=dev),
+        None if w_by_dst is None else torch.from_numpy(np.array(w_by_dst, np.float32)).to(dev),
+    )
+
+
+def engine_aux_compressed(cg: CompressedPool, aux_hi_cap: Optional[int] = None) -> CompressedAux:
+    """Decompress, build ``engine_aux``, re-compress the two int lanes with
+    the pool stream's width and escape capacity.  An adaptive pool gets
+    adaptive aux lanes with the pool's hi capacity unless ``aux_hi_cap``
+    overrides it (the engine retries at full capacity when only the aux
+    lanes overflow)."""
+    aux = engine_aux(decompress(cg))
+    k = cg.dst.k
+    if cg.dst.adaptive:
+        hi_cap = cg.dst.hi_cap if aux_hi_cap is None else aux_hi_cap
+        dst_sorted_c = cz.encode_stream_adaptive(aux.dst_sorted, hi_cap=hi_cap, k=k)
+        srcbd_c = cz.encode_stream_adaptive(aux.src_by_dst, hi_cap=hi_cap, k=k)
+    else:
+        dst_sorted_c = cz.encode_stream(aux.dst_sorted, width=cg.dst.width, k=k)
+        srcbd_c = cz.encode_stream(aux.src_by_dst, width=cg.dst.width, k=k)
+    w = aux.w_by_dst
+    if w is not None and dst_sorted_c.length > w.shape[0]:
+        w = torch.cat([w, w.new_zeros(dst_sorted_c.length - w.shape[0])])
+    return CompressedAux(
+        dst_sorted_c=dst_sorted_c,
+        srcbd_c=srcbd_c,
+        dst_offsets=aux.dst_offsets,
+        degrees=aux.degrees,
+        m_valid=aux.evalid.sum().to(torch.int32),
+        w_by_dst=w,
+    )
+
+
+def _inflate(cg: CompressedPool, caux: CompressedAux) -> Tuple[FlatGraph, EngineAux]:
+    """(CompressedPool, CompressedAux) -> (FlatGraph, EngineAux): the raw
+    views every query reads, decoded per query and dropped after it."""
+    g = decompress(cg)
+    cap = g.edge_capacity
+    src_c, dst_c, evalid = _pool_endpoints(g)
+    return g, EngineAux(
+        src_c=src_c,
+        dst_c=dst_c,
+        evalid=evalid,
+        degrees=caux.degrees,
+        dst_sorted=cz.decode_stream(caux.dst_sorted_c, cap),
+        src_by_dst=cz.decode_stream(caux.srcbd_c, cap),
+        valid_by_dst=torch.arange(cap, device=g.device) < caux.m_valid,
+        dst_offsets=caux.dst_offsets,
+        w_by_dst=None if caux.w_by_dst is None else caux.w_by_dst[:cap],
+    )
+
+
+def _edge_map_reduce_compressed(caux: CompressedAux, values_b: torch.Tensor, n: int):
+    """The (+, x) reduce on compressed operands: the chunked ``dst_sorted``
+    lane goes to the chunked segment-sum kernel undecoded; the src gather
+    lane is decoded (a gather needs materialized indices)."""
+    src_by_dst = cz.decode_stream(caux.srcbd_c)  # int32[capC]
+    valid = torch.arange(src_by_dst.shape[0], device=src_by_dst.device) < caux.m_valid
+    msg = _reduce_msgs_batch(values_b, src_by_dst, valid)
+    s = caux.dst_sorted_c
+    if caux.w_by_dst is None:
+        return kops.segment_sum_chunked(s.anchors, s.deltas, s.ovf_pos, s.ovf_add, msg, n,
+                                        hi=s.hi, wide=s.wide)
+    return kops.segment_sum_weighted_chunked(s.anchors, s.deltas, s.ovf_pos, s.ovf_add,
+                                             caux.w_by_dst, msg, n, hi=s.hi, wide=s.wide)
+
+
+def _any_spilled(*streams: cz.ChunkedStream) -> bool:
+    return bool(torch.stack([s.spill for s in streams]).any())
+
+
+class CompressedEngine(TorchEngine):
+    """``TorchEngine`` served from a chunk-compressed resident snapshot.
+
+    Holds a ``CompressedPool`` + ``CompressedAux`` instead of the raw pool
+    + ``EngineAux``: every query decodes the raw views it reads
+    (``_inflate``), and ``edge_map_reduce`` runs the chunked segment-sum
+    kernels, which decode inside the kernel.  The method surface, budgets
+    and frontier helpers are inherited.
+    """
+
+    def __init__(self, cg: CompressedPool, aux: Optional[CompressedAux] = None):
+        self.cg = cg
+        self.caux = engine_aux_compressed(cg) if aux is None else aux
+        # One read of the flags at construction: a spilled pool or aux lane
+        # would mis-decode every query.
+        pool_spilled = _any_spilled(cg.dst)
+        aux_spilled = _any_spilled(self.caux.dst_sorted_c, self.caux.srcbd_c)
+        if not pool_spilled and aux_spilled and aux is None and cg.dst.adaptive:
+            # The adaptive aux lanes inherited the pool's exact-fit hi
+            # capacity but need more wide chunks than the pool did: retry
+            # once at full capacity before declaring an escape-lane spill.
+            self.caux = engine_aux_compressed(cg, aux_hi_cap=cg.dst.deltas.shape[0])
+            aux_spilled = _any_spilled(self.caux.dst_sorted_c, self.caux.srcbd_c)
+        if pool_spilled or aux_spilled:
+            raise ValueError(
+                "compressed stream spilled its escape lane; rebuild the "
+                "snapshot with a wider delta lane or keep the raw engine"
+            )
+        self._setup(cg.n, int(cg.m), cg.edge_capacity, cg.device, self.caux.degrees)
+
+    def _views(self) -> Tuple[FlatGraph, EngineAux]:
+        return _inflate(self.cg, self.caux)
+
+    @property
+    def weights(self) -> Optional[torch.Tensor]:
+        return self.cg.weights
+
+    @property
+    def resident_nbytes(self) -> int:
+        """Device bytes held per snapshot: compressed pool + compressed aux."""
+        return cz.pytree_nbytes(self.cg) + cz.pytree_nbytes(self.caux)
+
+    def edge_map_reduce(self, values: torch.Tensor) -> torch.Tensor:
+        out = _edge_map_reduce_compressed(self.caux, values[None, :], self._n)
+        return out[:, 0].to(values.dtype)
+
+    def edge_map_reduce_batch(self, values: torch.Tensor) -> torch.Tensor:
+        return _edge_map_reduce_compressed(self.caux, values, self._n).T.to(values.dtype)

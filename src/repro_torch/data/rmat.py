@@ -2,7 +2,7 @@
 a=0.5, b=c=0.1, d=0.3).  Fully vectorized: each of the log2(n) bit levels
 draws one quadrant choice per edge.
 
-Port copy of ``repro/data/rmat.py`` (numpy only), unchanged apart from this note.
+Port copy of ``repro/data/rmat.py`` (numpy only), plus ``rmat_communities``.
 """
 from __future__ import annotations
 
@@ -52,3 +52,14 @@ def symmetrize(edges: np.ndarray) -> np.ndarray:
     keys = np.unique((both[:, 0] << 32) | both[:, 1])
     out = np.stack([keys >> 32, keys & 0xFFFFFFFF], axis=1)
     return out[out[:, 0] != out[:, 1]]  # drop self loops
+
+
+def rmat_communities(log_c: int, count: int, draws_per_vertex: int, seed: int) -> np.ndarray:
+    """``count`` disjoint symmetric rMAT communities of 2**log_c vertices,
+    community c drawn with seed ``seed + c`` and numbered from
+    ``c << log_c``: a graph whose ids have the locality the compressed
+    layout needs (``core/compressed.py``)."""
+    return np.concatenate([
+        symmetrize(rmat_edges(log_c, draws_per_vertex << log_c, seed=seed + c)) + (c << log_c)
+        for c in range(count)
+    ])

@@ -1,4 +1,6 @@
-// Sorted segment sums for Hopper (sm_90a): the edgeMap (+, x) reduce.
+// Sorted segment sums for Hopper (sm_90a): the edgeMap (+, x) reduce, over
+// a raw int32 dst lane (this header) or a chunk-compressed one (the
+// section "Chunk-compressed dst lane" below).
 //
 // Replaces the Pallas TPU kernels
 //   repro/kernels/segment_reduce.py:53   segment_sum_sorted
@@ -109,20 +111,186 @@ int group_lanes(long long E, int D, int n_out) {
 }
 
 template <bool kWeighted>
+int launch_reduce(const long long* bounds, const float* w, const float* msg, float* out,
+                  long long E, int D, int n_out, cudaStream_t s) {
+  const int S = group_lanes(E, D, n_out);
+  const int T = pow2_at_least(D) < S ? pow2_at_least(D) : S;
+  const long long rows_per_block = static_cast<long long>(kWarps) * (32 / S);
+  const unsigned row_blocks = static_cast<unsigned>((n_out + rows_per_block - 1) / rows_per_block);
+  segment_sum_kernel<kWeighted><<<row_blocks, kThreads, 0, s>>>(bounds, w, msg, out, D, n_out, S, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kWeighted>
 int launch(const int* dst, const float* w, const float* msg, float* out, long long* bounds,
            long long E, int D, int n_out, void* stream) {
   if (n_out <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
-  const int S = group_lanes(E, D, n_out);
-  const int T = pow2_at_least(D) < S ? pow2_at_least(D) : S;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned edge_blocks = static_cast<unsigned>((E + 1 + kThreads - 1) / kThreads);
   segment_bounds_kernel<<<edge_blocks, kThreads, 0, s>>>(dst, E, n_out, bounds);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const long long rows_per_block = static_cast<long long>(kWarps) * (32 / S);
-  const unsigned row_blocks = static_cast<unsigned>((n_out + rows_per_block - 1) / rows_per_block);
-  segment_sum_kernel<kWeighted><<<row_blocks, kThreads, 0, s>>>(bounds, w, msg, out, D, n_out, S, T);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce<kWeighted>(bounds, w, msg, out, E, D, n_out, s);
+}
+
+// ---------------------------------------------------------------------------
+// Chunk-compressed dst lane: decode inside the bounds pass
+// ---------------------------------------------------------------------------
+//
+// Replaces the Pallas TPU kernels
+//   repro/kernels/segment_reduce.py:229  segment_sum_sorted_chunked
+//   repro/kernels/segment_reduce.py:271  segment_sum_weighted_chunked
+//   repro/kernels/segment_reduce.py:410  segment_sum_sorted_chunked_adaptive
+//   repro/kernels/segment_reduce.py:454  segment_sum_weighted_chunked_adaptive
+// the same sums with dst stored as 128-slot chunks (repro_torch/core/
+// compressed.py): anchor int32, int8 or int16 deltas, up to K escapes
+// (ovf_pos, ovf_add; pos == 128 marks an unused slot); the adaptive layout
+// has one int8 lane, a per-chunk wide tag and a compacted hi-byte plane.
+// The TPU kernels decode each tile in the prologue and feed the one-hot
+// MXU product.  Here pass 2 never reads dst (only bounds), so only pass 1
+// changes: it decodes as it bounds, and decoded ids never reach HBM.
+//   * One warp per chunk row, 4 slots per lane.  Each lane loads its 4
+//     deltas (fixed: int8 or int16; adaptive wide: hi * 256 + (lane &
+//     0xFF), with the hi row hi_row[r] = cumsum(wide) - 1 computed by the
+//     wrapper in O(R), so no (R, 128) gathered plane is built), adds the
+//     escapes that fall in its slots (table entries broadcast by shuffle),
+//     and a warp inclusive scan plus the anchor gives the decoded ids.
+//   * Pass 1 writes, for each slot e, bounds[x] = e + 1 for x in
+//     (key(e), key(e + 1)], key clamping to [-1, n_out] as
+//     segment_bounds_kernel does.  key(e + 1) of a row's last slot is the
+//     first id of the next row: its anchor, its column-0 delta and its
+//     escapes at column 0, a few loads, so no warp depends on another.
+//     The warp of row 0 also writes bounds[x] = 0 for x <= key(0).
+//   * Then pass 2 is segment_sum_kernel unchanged, over E = R * 128 slots.
+// Contract: the decoded ids are ascending (the engine's dst_sorted lane
+// is); pad slots decode to n_out or more and are dropped.  Integer decode
+// arithmetic wraps in 32 bits, as the reference's int32 cumsum does.
+//
+// Bound: bytes.  Against the raw kernel the dst read shrinks from 4 bytes
+// per slot to the stream's bytes (about 1.5 per slot for int8 chunks with
+// their escape table, 2.5 for int16), messages and output are unchanged.
+
+constexpr int kChunk = 128;
+constexpr int kSlotsPerLane = kChunk / 32;
+
+struct ChunkedLane {
+  const int* anchors;         // int32[R]
+  const void* deltas;         // int8 or int16 [R, 128]
+  const signed char* hi;      // adaptive: int8[H, 128]
+  const unsigned char* wide;  // adaptive: bool[R]
+  const int* hi_row;          // adaptive: int32[R], row of each chunk in hi
+  const int* ovf_pos;         // int32[R, K]
+  const int* ovf_add;         // int32[R, K]
+  long long R;
+  int K;
+  int H;
+};
+
+__device__ __forceinline__ int clamp_key(int v, int n_out) { return min(max(v, -1), n_out); }
+
+template <bool kAdaptive>
+__device__ __forceinline__ bool is_wide(const ChunkedLane& c, long long r) {
+  return kAdaptive && c.H > 0 && c.wide[r] != 0;
+}
+
+template <int kWidth, bool kAdaptive>
+__device__ __forceinline__ unsigned slot_delta(const ChunkedLane& c, long long r, int col,
+                                               bool wide, int hrow) {
+  int v;
+  if (kWidth == 1) {
+    v = static_cast<const signed char*>(c.deltas)[r * kChunk + col];
+  } else {
+    v = static_cast<const short*>(c.deltas)[r * kChunk + col];
+  }
+  if (kAdaptive && wide) {
+    v = static_cast<int>(c.hi[static_cast<long long>(hrow) * kChunk + col]) * 256 + (v & 0xFF);
+  }
+  return static_cast<unsigned>(v);
+}
+
+// Decoded id at column 0 of row r.
+template <int kWidth, bool kAdaptive>
+__device__ int first_id(const ChunkedLane& c, long long r) {
+  const bool wide = is_wide<kAdaptive>(c, r);
+  unsigned v = static_cast<unsigned>(c.anchors[r]) +
+               slot_delta<kWidth, kAdaptive>(c, r, 0, wide, wide ? c.hi_row[r] : 0);
+  for (int j = 0; j < c.K; ++j) {
+    if (c.ovf_pos[r * c.K + j] <= 0) v += static_cast<unsigned>(c.ovf_add[r * c.K + j]);
+  }
+  return static_cast<int>(v);
+}
+
+template <int kWidth, bool kAdaptive>
+__global__ void __launch_bounds__(kThreads)
+    chunked_bounds_kernel(ChunkedLane c, int n_out, long long* __restrict__ bounds) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (r >= c.R) return;  // warp-uniform
+  const bool wide = is_wide<kAdaptive>(c, r);
+  const int hrow = wide ? c.hi_row[r] : 0;
+  const int c0 = lane * kSlotsPerLane;
+  unsigned d[kSlotsPerLane];
+#pragma unroll
+  for (int j = 0; j < kSlotsPerLane; ++j) d[j] = slot_delta<kWidth, kAdaptive>(c, r, c0 + j, wide, hrow);
+  // escapes: lane j < K holds entry j of the row's table; each is added at
+  // its column (a negative column acts at column 0, as in decode_rows)
+  int p = kChunk, a = 0;
+  if (lane < c.K) {
+    p = c.ovf_pos[r * c.K + lane];
+    a = c.ovf_add[r * c.K + lane];
+  }
+  for (int j = 0; j < c.K; ++j) {
+    const int pj = max(__shfl_sync(full, p, j), 0);
+    const int aj = __shfl_sync(full, a, j);
+    if (pj >= c0 && pj < c0 + kSlotsPerLane) d[pj - c0] += static_cast<unsigned>(aj);
+  }
+#pragma unroll
+  for (int j = 1; j < kSlotsPerLane; ++j) d[j] += d[j - 1];
+  unsigned incl = d[kSlotsPerLane - 1];
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned t = __shfl_up_sync(full, incl, off);
+    if (lane >= off) incl += t;
+  }
+  const unsigned base = static_cast<unsigned>(c.anchors[r]) + (incl - d[kSlotsPerLane - 1]);
+  int v[kSlotsPerLane];
+#pragma unroll
+  for (int j = 0; j < kSlotsPerLane; ++j) v[j] = static_cast<int>(base + d[j]);
+  int next = __shfl_down_sync(full, v[0], 1);
+  if (lane == 31) next = r + 1 < c.R ? first_id<kWidth, kAdaptive>(c, r + 1) : n_out;
+  const long long e0 = r * kChunk + c0;
+  if (r == 0 && lane == 0) {
+    const int k0 = clamp_key(v[0], n_out);
+    for (int x = 0; x <= k0; ++x) bounds[x] = 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kSlotsPerLane; ++j) {
+    const int lo = clamp_key(v[j], n_out);
+    const int hi = clamp_key(j + 1 < kSlotsPerLane ? v[j + 1] : next, n_out);
+    for (int x = lo + 1; x <= hi; ++x) bounds[x] = e0 + j + 1;
+  }
+}
+
+template <bool kWeighted>
+int launch_chunked(const ChunkedLane& c, int width, bool adaptive, const float* w,
+                   const float* msg, float* out, long long* bounds, int D, int n_out,
+                   void* stream) {
+  if (n_out <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
+  if (c.R <= 0 || c.K < 0 || c.K > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned row_blocks = static_cast<unsigned>((c.R + kWarps - 1) / kWarps);
+  if (adaptive) {
+    chunked_bounds_kernel<1, true><<<row_blocks, kThreads, 0, s>>>(c, n_out, bounds);
+  } else if (width == 1) {
+    chunked_bounds_kernel<1, false><<<row_blocks, kThreads, 0, s>>>(c, n_out, bounds);
+  } else if (width == 2) {
+    chunked_bounds_kernel<2, false><<<row_blocks, kThreads, 0, s>>>(c, n_out, bounds);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_reduce<kWeighted>(bounds, w, msg, out, c.R * kChunk, D, n_out, s);
 }
 
 }  // namespace
@@ -142,4 +310,46 @@ extern "C" int repro_segment_sum_weighted_sorted(const int* dst, const float* w,
                                                  long long* bounds, long long E, int D,
                                                  int n_out, void* stream) {
   return launch<true>(dst, w, msg, out, bounds, E, D, n_out, stream);
+}
+
+// Chunked entry points.  anchors: int32[R]; deltas: int8 or int16 [R, 128]
+// (`width` bytes); ovf_pos, ovf_add: int32[R, K], K <= 32; w: float32[R *
+// 128]; msg: float32[R * 128, D]; out, bounds as above.  The adaptive ones
+// take the int8 lane, hi: int8[H, 128], wide: bool[R] and hi_row: int32[R]
+// (cumsum(wide) - 1 clamped to [0, H)); H == 0 reads every chunk narrow.
+extern "C" int repro_segment_sum_sorted_chunked(const int* anchors, const void* deltas, int width,
+                                                const int* ovf_pos, const int* ovf_add,
+                                                const float* msg, float* out, long long* bounds,
+                                                long long R, int K, int D, int n_out,
+                                                void* stream) {
+  const ChunkedLane c{anchors, deltas, nullptr, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
+  return launch_chunked<false>(c, width, false, nullptr, msg, out, bounds, D, n_out, stream);
+}
+
+extern "C" int repro_segment_sum_weighted_chunked(const int* anchors, const void* deltas,
+                                                  int width, const int* ovf_pos,
+                                                  const int* ovf_add, const float* w,
+                                                  const float* msg, float* out,
+                                                  long long* bounds, long long R, int K, int D,
+                                                  int n_out, void* stream) {
+  const ChunkedLane c{anchors, deltas, nullptr, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
+  return launch_chunked<true>(c, width, false, w, msg, out, bounds, D, n_out, stream);
+}
+
+extern "C" int repro_segment_sum_sorted_chunked_adaptive(
+    const int* anchors, const void* deltas, const void* hi, const void* wide, const int* hi_row,
+    int H, const int* ovf_pos, const int* ovf_add, const float* msg, float* out,
+    long long* bounds, long long R, int K, int D, int n_out, void* stream) {
+  const ChunkedLane c{anchors, deltas, static_cast<const signed char*>(hi),
+                      static_cast<const unsigned char*>(wide), hi_row, ovf_pos, ovf_add, R, K, H};
+  return launch_chunked<false>(c, 1, true, nullptr, msg, out, bounds, D, n_out, stream);
+}
+
+extern "C" int repro_segment_sum_weighted_chunked_adaptive(
+    const int* anchors, const void* deltas, const void* hi, const void* wide, const int* hi_row,
+    int H, const int* ovf_pos, const int* ovf_add, const float* w, const float* msg, float* out,
+    long long* bounds, long long R, int K, int D, int n_out, void* stream) {
+  const ChunkedLane c{anchors, deltas, static_cast<const signed char*>(hi),
+                      static_cast<const unsigned char*>(wide), hi_row, ovf_pos, ovf_add, R, K, H};
+  return launch_chunked<true>(c, 1, true, w, msg, out, bounds, D, n_out, stream);
 }

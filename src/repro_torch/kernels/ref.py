@@ -1,9 +1,9 @@
 """Oracles for the port's kernels (the correctness contracts).
 
-Counterpart of ``repro/kernels/ref.py:38-41``.  Each oracle computes the
+Counterpart of ``repro/kernels/ref.py:20-41``.  Each oracle computes the
 kernel's function the most direct way — a float64 scatter-add, no
-sortedness assumed — so tests can hold both the kernel and its plain
-version against it.
+sortedness assumed; a decode as anchor + cumsum plus one step per escape
+— so tests can hold both the kernel and its plain version against it.
 """
 from __future__ import annotations
 
@@ -26,3 +26,17 @@ def segment_sum_weighted_sorted_ref(
         rows = rows * w.double()[keep][:, None]
     out = torch.zeros((n_out, msg.shape[1]), dtype=torch.float64, device=msg.device)
     return out.index_add_(0, dst[keep], rows)
+
+
+def delta_decode_chunked_ref(
+    anchors: torch.Tensor, deltas: torch.Tensor, ovf_pos: torch.Tensor, ovf_add: torch.Tensor
+) -> torch.Tensor:
+    """Escape-lane decode oracle (``core/compressed.ChunkedStream`` rows):
+    anchor + lane cumsum, then each escape k adds ovf_add[i, k] to every
+    column >= ovf_pos[i, k] (unused slots carry pos == chunk_len, which
+    never triggers).  int64 throughout, cut to int32 at the end."""
+    base = anchors.long()[:, None] + torch.cumsum(deltas.long(), dim=1)
+    cols = torch.arange(deltas.shape[1], device=deltas.device)
+    step = cols[None, :, None] >= ovf_pos.long()[:, None, :]
+    corr = torch.where(step, ovf_add.long()[:, None, :], 0).sum(-1)
+    return (base + corr).to(torch.int32)

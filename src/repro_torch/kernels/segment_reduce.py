@@ -1,14 +1,19 @@
 """Sorted segment sums: wrappers around the Hopper kernels, their launch
 counters, and their plain PyTorch versions.
 
-Counterpart of ``repro/kernels/segment_reduce.py:53`` (``segment_sum_sorted``)
-and ``:109`` (``segment_sum_weighted_sorted``).  The kernels live in
-``csrc/segment_reduce.cu``; see its header for the design and its bound.
+Counterpart of ``repro/kernels/segment_reduce.py:53`` (``segment_sum_sorted``),
+``:109`` (``segment_sum_weighted_sorted``) and the chunked ``:229``, ``:271``,
+``:410`` and ``:454``.  The kernels live in ``csrc/segment_reduce.cu``; see
+its comments for the design and the bound.
 
-Contract (both): ``dst`` int32 (E,) ascending, ``msg`` float32 (E, D),
+Contract (raw): ``dst`` int32 (E,) ascending, ``msg`` float32 (E, D),
 ``w`` float32 (E,); returns float32 (n_out, D) with
 ``out[d] = sum_{dst[e] == d} [w[e] *] msg[e]``.  Entries with
-``dst >= n_out`` (padding, invalid edges) are dropped.
+``dst >= n_out`` (padding, invalid edges) are dropped.  The chunked
+kernels take dst as a ``core/compressed.ChunkedStream``'s arrays
+(E = R * CHUNK) and compute the same function of the decoded lane, which
+must be ascending; their plain versions decode and then reduce, and take
+any lane.
 
 Dispatch: a tensor on the CPU gets the plain version; a CUDA tensor gets
 the kernel or an exception — never the plain version.
@@ -19,11 +24,19 @@ import ctypes
 
 import torch
 
+from ..core import compressed as cz
 from . import _build
 
 # Launches of each kernel in this process (bumped only where the kernel
 # is launched, never by the plain versions).
-LAUNCHES = {"segment_sum": 0, "segment_sum_weighted": 0}
+LAUNCHES = {
+    "segment_sum": 0,
+    "segment_sum_weighted": 0,
+    "segment_sum_chunked": 0,
+    "segment_sum_weighted_chunked": 0,
+    "segment_sum_chunked_adaptive": 0,
+    "segment_sum_weighted_chunked_adaptive": 0,
+}
 
 
 def reset_launches() -> None:
@@ -31,23 +44,30 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(dst: torch.Tensor, msg: torch.Tensor, n_out: int, w: torch.Tensor | None) -> None:
-    if dst.dtype != torch.int32 or dst.dim() != 1:
-        raise TypeError(f"dst must be int32 (E,), got {dst.dtype} {tuple(dst.shape)}")
-    if msg.dtype != torch.float32 or msg.dim() != 2 or msg.shape[0] != dst.shape[0]:
-        raise TypeError(f"msg must be float32 (E, D) with E={dst.shape[0]}, got "
+def _check_msg(E: int, msg: torch.Tensor, n_out: int, w: torch.Tensor | None) -> None:
+    if msg.dtype != torch.float32 or msg.dim() != 2 or msg.shape[0] != E:
+        raise TypeError(f"msg must be float32 (E, D) with E={E}, got "
                         f"{msg.dtype} {tuple(msg.shape)}")
-    if w is not None and (w.dtype != torch.float32 or tuple(w.shape) != tuple(dst.shape)):
+    if w is not None and (w.dtype != torch.float32 or tuple(w.shape) != (E,)):
         raise TypeError(f"w must be float32 (E,), got {w.dtype} {tuple(w.shape)}")
     if n_out < 0 or n_out >= 2**31:
         raise ValueError(f"n_out out of int32 range: {n_out}")
-    tensors = [dst, msg] + ([] if w is None else [w])
+
+
+def _check_placement(tensors) -> None:
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("dst, msg and w must be on one device")
-    if dst.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dst.device}")
+        raise ValueError("all operands must be on one device")
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("dst, msg and w must be contiguous")
+        raise ValueError("all operands must be contiguous")
+
+
+def _check(dst: torch.Tensor, msg: torch.Tensor, n_out: int, w: torch.Tensor | None) -> None:
+    if dst.dtype != torch.int32 or dst.dim() != 1:
+        raise TypeError(f"dst must be int32 (E,), got {dst.dtype} {tuple(dst.shape)}")
+    _check_msg(dst.shape[0], msg, n_out, w)
+    _check_placement([dst, msg] + ([] if w is None else [w]))
 
 
 def _plain(dst, msg, n_out, w=None):
@@ -108,3 +128,128 @@ def segment_sum_weighted_sorted(
     if dst.device.type == "cpu":
         return segment_sum_weighted_sorted_plain(dst, w, msg, n_out)
     return _launch("repro_segment_sum_weighted_sorted", "segment_sum_weighted", dst, w, msg, n_out)
+
+
+# ---------------------------------------------------------------------------
+# chunk-compressed dst lane
+# ---------------------------------------------------------------------------
+
+
+def _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, w=None, hi=None, wide=None):
+    R = anchors.shape[0]
+    if anchors.dtype != torch.int32 or anchors.dim() != 1 or R == 0:
+        raise TypeError(f"anchors must be int32 (R,), R > 0, got {anchors.dtype} "
+                        f"{tuple(anchors.shape)}")
+    lane_types = (torch.int8,) if hi is not None else (torch.int8, torch.int16)
+    if deltas.dtype not in lane_types or tuple(deltas.shape) != (R, cz.CHUNK):
+        raise TypeError(f"deltas must be {lane_types} ({R}, {cz.CHUNK}), "
+                        f"got {deltas.dtype} {tuple(deltas.shape)}")
+    K = ovf_pos.shape[-1]
+    for name, t in (("ovf_pos", ovf_pos), ("ovf_add", ovf_add)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (R, K):
+            raise TypeError(f"{name} must be int32 ({R}, K), got {t.dtype} {tuple(t.shape)}")
+    if K > 32:
+        raise ValueError(f"at most 32 escape slots per chunk, got {K}")
+    if hi is not None:
+        if hi.dtype != torch.int8 or hi.dim() != 2 or hi.shape[1] != cz.CHUNK:
+            raise TypeError(f"hi must be int8 (H, {cz.CHUNK}), got {hi.dtype} {tuple(hi.shape)}")
+        if wide is None or wide.dtype != torch.bool or tuple(wide.shape) != (R,):
+            raise TypeError(f"wide must be bool ({R},)")
+    _check_msg(R * cz.CHUNK, msg, n_out, w)
+    _check_placement([t for t in (anchors, deltas, ovf_pos, ovf_add, hi, wide, w, msg)
+                      if t is not None])
+
+
+def _decoded(anchors, deltas, ovf_pos, ovf_add, hi=None, wide=None) -> torch.Tensor:
+    spill = torch.zeros((), dtype=torch.bool, device=anchors.device)
+    return cz.decode_stream(cz.ChunkedStream(anchors, deltas, ovf_pos, ovf_add, spill, hi, wide))
+
+
+def segment_sum_sorted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, msg, n_out, hi=None,
+                                     wide=None) -> torch.Tensor:
+    """Plain PyTorch version of the chunked kernels (fixed, or adaptive
+    with ``hi``/``wide``): ``decode_rows``, drop ``dst >= n_out``, then
+    ``index_add_``."""
+    return _plain(_decoded(anchors, deltas, ovf_pos, ovf_add, hi, wide), msg, n_out)
+
+
+def segment_sum_weighted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out,
+                                       hi=None, wide=None) -> torch.Tensor:
+    """Plain PyTorch version of the weighted chunked kernels."""
+    return _plain(_decoded(anchors, deltas, ovf_pos, ovf_add, hi, wide), msg, n_out, w)
+
+
+# (weighted, adaptive) -> (launch counter, C entry point)
+_CHUNKED = {
+    (False, False): ("segment_sum_chunked", "repro_segment_sum_sorted_chunked"),
+    (True, False): ("segment_sum_weighted_chunked", "repro_segment_sum_weighted_chunked"),
+    (False, True): ("segment_sum_chunked_adaptive", "repro_segment_sum_sorted_chunked_adaptive"),
+    (True, True): ("segment_sum_weighted_chunked_adaptive",
+                   "repro_segment_sum_weighted_chunked_adaptive"),
+}
+
+
+def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) -> torch.Tensor:
+    adaptive, weighted = hi is not None, w is not None
+    counter, fn_name = _CHUNKED[(weighted, adaptive)]
+    fn = getattr(_build.library("segment_reduce"), fn_name)
+    R, K = ovf_pos.shape
+    D = msg.shape[1]
+    out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
+    bounds = torch.empty(n_out + 1, dtype=torch.int64, device=msg.device)  # scratch
+    stream = torch.cuda.current_stream(msg.device).cuda_stream
+    ptrs = [_ptr(anchors), _ptr(deltas)]
+    if adaptive:
+        hi_row = cz.hi_rows(wide, hi.shape[0])  # O(R); no (R, CHUNK) gathered plane
+        ptrs += [_ptr(hi), _ptr(wide), _ptr(hi_row), ctypes.c_int(hi.shape[0])]
+    else:
+        ptrs += [ctypes.c_int(deltas.element_size())]
+    ptrs += [_ptr(ovf_pos), _ptr(ovf_add)] + ([_ptr(w)] if weighted else [])
+    ptrs += [_ptr(msg), _ptr(out), _ptr(bounds)]
+    fn.argtypes = [type(p) for p in ptrs] + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(msg.device):
+        rc = fn(*ptrs, R, K, D, n_out, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+    LAUNCHES[counter] += 1
+    return out
+
+
+def segment_sum_sorted_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out) -> torch.Tensor:
+    """``segment_sum_sorted`` over a fixed-width chunked dst lane (int8 or
+    int16 deltas with escapes), decoded inside the kernel."""
+    _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out)
+    if msg.device.type == "cpu":
+        return segment_sum_sorted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, msg, n_out)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, None, msg, n_out, None, None)
+
+
+def segment_sum_weighted_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out) -> torch.Tensor:
+    """Weighted ``segment_sum_sorted_chunked``."""
+    _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, w=w)
+    if msg.device.type == "cpu":
+        return segment_sum_weighted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, None, None)
+
+
+def segment_sum_sorted_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ovf_add, msg,
+                                        n_out) -> torch.Tensor:
+    """``segment_sum_sorted_chunked`` over the adaptive layout: int8 lane,
+    compacted hi plane ``hi`` (H, CHUNK) and per-chunk tags ``wide``."""
+    _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, hi=hi, wide=wide)
+    if msg.device.type == "cpu":
+        return segment_sum_sorted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, msg, n_out,
+                                                hi, wide)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, None, msg, n_out, hi, wide)
+
+
+def segment_sum_weighted_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ovf_add, w, msg,
+                                          n_out) -> torch.Tensor:
+    """Weighted ``segment_sum_sorted_chunked_adaptive``."""
+    _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, w=w, hi=hi, wide=wide)
+    if msg.device.type == "cpu":
+        return segment_sum_weighted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, w, msg,
+                                                  n_out, hi, wide)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide)

@@ -203,10 +203,12 @@ def test_run_concurrent_serves_torch_engines(edges):
 
 
 def test_unported_options_and_missing_gpu_raise(edges, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         _stream(edges, mirror="sharded")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _stream(edges, compressed=True)
+    compressed = _stream(edges, compressed=True)  # ported: the compressed mirror
+    v = compressed.acquire()
+    assert isinstance(v.aux[tst.MIRROR], tfg.CompressedPool)
+    compressed.release(v)
     with pytest.raises(ValueError):
         _stream(edges, mirror=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

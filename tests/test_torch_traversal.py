@@ -201,7 +201,7 @@ def test_make_engine_dispatch(plain):
     te, _, ne = plain
     assert isinstance(make_engine(te.g), TorchEngine)
     assert isinstance(make_engine(ne.snap, backend="torch", device="cpu"), TorchEngine)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         make_engine(te.g, backend="sharded")
     with pytest.raises(ValueError):
         make_engine(te.g, backend="jax")
