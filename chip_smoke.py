@@ -37,12 +37,33 @@ checks every result.  One JSON object per phase goes to stdout:
           layout, plain and weighted: ``CompressedEngine`` held against the
           raw engine on the same edges, each chunked kernel timed against
           its plain version and the raw kernel on the decoded lane (first
-          showing that the scale phase's plain rMAT graph raises).
+          showing that the scale phase's plain rMAT graph raises), and the
+          two chunked decode kernels timed on each layout's source lane;
+  decode_kernels
+          each delta-decode kernel against its plain version, exactly, on
+          synthetic inputs that reach the corners: padded rows of ragged
+          length, int8 / int16 chunk rows with escapes at columns 0, 1,
+          127, below 0 and at the row's end, adaptive lanes all narrow, all
+          wide, mixed, and with an empty hi plane;
+  host_decode
+          ``ops.decode_pool`` on the stream phase's final host snapshot
+          (per-vertex neighbour lists chunked at vertex starts and hash
+          heads, packed in uint16 and uint8), equal to
+          ``chunks.unpack_deltas``, and the padded kernel timed at that
+          shape;
+  scale_decode
+          the padded kernel on the scale phase's pool dst lane cut into
+          128-slot rows (67 M real ids), against its plain version and
+          ``torch.cumsum``.
 
 The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
 chunk) holds only graphs whose ids have community locality: on plain
 rMAT beyond 2^15 vertices some chunk needs more than 8 int16 escapes and
 ``compress_host`` raises, in the reference as in the port (PERF.md §7).
+
+The compressed engine decodes its lanes through the chunked decode
+kernels (``core/compressed.decode_rows`` on the card), so the compressed
+phases count their launches too.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any mismatch or exception ends the run with a nonzero exit and no ``ok``
@@ -462,6 +483,215 @@ def phase_scale_kernels(g, aux) -> list:
     return summary
 
 # ---------------------------------------------------------------------------
+# delta-decode phases
+# ---------------------------------------------------------------------------
+
+DECODE_KERNELS = ("delta_decode_chunked", "delta_decode_chunked_adaptive", "delta_decode_padded")
+
+
+def padded_decode_bound(R: int, L: int):
+    """Least time (ms) of the padded decode: 4 B per delta read, 4 B per
+    anchor, 4 B per id written over HBM; one add per id over the f32
+    peak (the scans' shuffles are not counted)."""
+    t_bytes, t_ops = (8 * R * L + 4 * R) / HBM_BYTES_PER_S, R * L / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chunked_decode_bound(s):
+    """Least time (ms) of a chunked decode of stream ``s``: the lane, the
+    hi rows that wide chunks use, per row the anchor and the escape table
+    (adaptive: the wide tag and the hi row index too), and 4 B per id
+    written; one add per id and per escape over the f32 peak."""
+    R, K = s.ovf_pos.shape
+    L = s.deltas.shape[1]
+    per_row = 4 + 8 * K + (5 if s.hi is not None else 0)
+    hi_used = 0 if s.hi is None or s.hi_cap == 0 else int(s.wide.sum()) * L
+    nbytes = s.deltas.numel() * s.deltas.element_size() + hi_used + per_row * R + 4 * R * L
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, R * (L + K) / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_calls(s):
+    """(kernel, plain version) of the chunked decode for stream ``s``'s
+    layout, as thunks."""
+    from repro_torch.kernels import delta_decode as dd
+
+    a, d, p, v = s.anchors, s.deltas, s.ovf_pos, s.ovf_add
+    if s.hi is None:
+        return (lambda: dd.delta_decode_chunked(a, d, p, v),
+                lambda: dd.delta_decode_chunked_plain(a, d, p, v))
+    return (lambda: dd.delta_decode_chunked_adaptive(a, d, s.hi, s.wide, p, v),
+            lambda: dd.delta_decode_chunked_adaptive_plain(a, d, s.hi, s.wide, p, v))
+
+
+def check_equal(got, want, what: str) -> float:
+    """Integer decode: the kernel must equal its plain version exactly."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel differs from its plain version")
+    return 0.0
+
+
+def escape_rows(R: int, width: int, seed: int):
+    """Fixed-width chunk rows (int8 or int16 lane, 8 escape slots) whose
+    row r uses 1 + r % 8 slots at distinct columns: one corner in turn
+    (column 0, 1, 127, -3, or 128 = the row's end, which must never act,
+    with a nonzero delta) and the rest in [2, 127); anchors over the whole
+    int32 range, so the decode wraps."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    K, lim = 8, (100 if width == 1 else 30_000)
+    deltas = rng.integers(-lim, lim, (R, 128)).astype(np.int8 if width == 1 else np.int16)
+    cols = np.argsort(rng.random((R, 125)), axis=1)[:, :K - 1] + 2
+    corner = np.array([0, 1, 127, -3, 128])[np.arange(R) % 5]
+    pos = np.concatenate([corner[:, None], cols], 1)
+    used = np.arange(K)[None, :] < (1 + np.arange(R) % K)[:, None]
+    add = np.where(used, rng.integers(-(1 << 20), 1 << 20, (R, K)), 0)
+    pos = np.where(used, pos, 128)
+    order = np.argsort(pos, axis=1, kind="stable")
+    pos, add = np.take_along_axis(pos, order, 1), np.take_along_axis(add, order, 1)
+    r_idx, c_idx = np.nonzero((pos >= 0) & (pos < 128))
+    deltas[r_idx, pos[r_idx, c_idx]] = 0  # escaped slots hold 0 in the lane
+    deltas[:, 0] = 0
+    anchors = rng.integers(-(2**31), 2**31, R, dtype=np.int64).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+            for x in (anchors, deltas, pos.astype(np.int32), add.astype(np.int32))]
+
+
+def phase_decode_kernels() -> None:
+    import torch
+
+    from repro_torch.core import compressed as cz
+    from repro_torch.kernels import delta_decode as dd
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for R, L in [(1, 1), (3, 40), (17, 300), (65539, 257), (2, 4097)]:
+        full = dict(low=-(2**31), high=2**31, generator=gen, device="cuda", dtype=torch.int32)
+        a, d = torch.randint(size=(R,), **full), torch.randint(size=(R, L), **full)
+        rows.append({"kernel": "delta_decode_padded", "R": R, "L": L, "max_abs_err": check_equal(
+            dd.delta_decode_padded(a, d), dd.delta_decode_padded_plain(a, d), f"padded {R}x{L}")})
+    for R in (1, 1001, 7919):
+        for width in (1, 2):
+            a, d, p, v = escape_rows(R, width, seed=R + width)
+            s = cz.ChunkedStream(a, d, p, v, torch.zeros((), dtype=torch.bool, device="cuda"))
+            kern, plain = decode_calls(s)
+            lane = f"int{8 * width}"
+            rows.append({"kernel": "delta_decode_chunked", "lane": lane, "R": R,
+                         "escapes": int(((p >= 0) & (p < 128)).sum()),
+                         "max_abs_err": check_equal(kern(), plain(), f"chunked {lane} R={R}")})
+        rng = np.random.default_rng(R)
+        small = np.cumsum(rng.integers(-100, 100, R * 128)).astype(np.int32)
+        big = np.cumsum(rng.integers(-30_000, 30_000, R * 128)).astype(np.int32)
+        mixed, _ = ascending_lane(R, "mixed", seed=R, esc_every=3)
+        for kind, lane, hi_cap in (("narrow", small, 4), ("wide", big, R),
+                                   ("mixed", mixed, None), ("narrow_h0", small, 0)):
+            lane_t = torch.from_numpy(lane).cuda()
+            if hi_cap is None:  # spare hi rows past the wide count
+                hi_cap = int(cz.encode_stream_adaptive(lane_t, hi_cap=R).wide.sum()) + 3
+            s = cz.encode_stream_adaptive(lane_t, hi_cap=hi_cap)
+            n_wide = int(s.wide.sum())
+            if bool(s.spill) or (R > 1 and not {"narrow": n_wide == 0, "narrow_h0": n_wide == 0,
+                                                  "wide": n_wide == R,
+                                                  "mixed": 0 < n_wide < R}[kind]):
+                raise AssertionError(f"decode_kernels: adaptive {kind} R={R} is not {kind}")
+            kern, plain = decode_calls(s)
+            err = check_equal(kern(), plain(), f"adaptive {kind} R={R}")
+            if R > 1 and not torch.equal(kern().reshape(-1)[:lane.size], lane_t):
+                raise AssertionError(f"decode_kernels: adaptive {kind} R={R} does not round-trip")
+            rows.append({"kernel": "delta_decode_chunked_adaptive", "lane": kind, "R": R,
+                         "wide": n_wide, "hi_rows": s.hi_cap,
+                         "escapes": int((s.ovf_pos < 128).sum()), "max_abs_err": err})
+    emit({"phase": "decode_kernels", "tolerance": "exact", "cases": rows,
+          "phase_s": time.perf_counter() - t0})
+
+
+def phase_host_decode(stream) -> tuple:
+    """``ops.decode_pool`` on the stream's final host snapshot: every
+    vertex's sorted neighbour list, end to end, chunked where a vertex
+    starts and at the C-tree's hash heads (``ctree.DEFAULT_B``), packed in
+    uint16 and uint8.  Equal to ``chunks.unpack_deltas`` exactly; the
+    padded kernel then timed at this pool's shape."""
+    import torch
+
+    from repro_torch.core import chunks as ck
+    from repro_torch.core import ctree
+    from repro_torch.core.hash import is_head_np
+    from repro_torch.core.traversal.numpy_backend import gather_csr
+    from repro_torch.kernels import delta_decode as dd
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    snap = stream.flat_snapshot()
+    offsets, nbrs = gather_csr(snap, np.arange(snap.n, dtype=np.int64))
+    out = {"phase": "host_decode", "n": snap.n, "m": int(nbrs.size),
+           "gather_s": time.perf_counter() - t0}
+    heads = np.flatnonzero(is_head_np(nbrs, ctree.DEFAULT_B))
+    chunk_off = np.unique(np.concatenate([[0], offsets[:-1][np.diff(offsets) > 0], heads,
+                                          [nbrs.size]])).astype(np.int64)
+    packs = {w: ck.pack_deltas(nbrs, chunk_off, width=w) for w in ("uint16", "uint8")}
+    dd.reset_launches()
+    got = {}
+    for w, p in packs.items():
+        t = time.perf_counter()
+        got[w] = ops.decode_pool(p, device="cuda")
+        out[f"decode_pool_{w}_s"] = time.perf_counter() - t
+    launches = dict(dd.LAUNCHES)
+    if launches["delta_decode_padded"] == 0:
+        raise AssertionError(f"host_decode: delta_decode_padded was never launched: {launches}")
+    for w, p in packs.items():
+        t = time.perf_counter()
+        want = ck.unpack_deltas(p)
+        out[f"unpack_deltas_{w}_s"] = time.perf_counter() - t
+        if not (np.array_equal(got[w], want) and np.array_equal(want, nbrs)):
+            raise AssertionError(f"host_decode: decode_pool ({w}) differs from unpack_deltas")
+        out[f"escapes_{w}"] = int(p.overflow.size)
+    anchors, rows, _ = ops.pool_rows(packs["uint16"], device="cuda")
+    rows[:, 0] = 0
+    R, L = rows.shape
+    kern = lambda: dd.delta_decode_padded(anchors, rows)  # noqa: E731
+    plain = lambda: dd.delta_decode_padded_plain(anchors, rows)  # noqa: E731
+    lib = lambda: torch.cumsum(rows, 1, dtype=torch.int32) + anchors[:, None]  # noqa: E731
+    err = check_equal(kern(), plain(), "host_decode padded")
+    bound_ms, bound_by = padded_decode_bound(R, L)
+    out.update(chunks=R, max_len=L, padded_bytes=4 * R * L, max_abs_err=err,
+               ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+               bound_ms=bound_ms, bound_by=bound_by, launches=launches,
+               phase_s=time.perf_counter() - t0)
+    emit(out)
+    return launches
+
+
+def phase_scale_decode(g) -> dict:
+    """The padded kernel at full size: the scale pool's dst lane (real
+    ids, pads included) cut into 128-slot rows, held against its plain
+    version and the lane itself, timed beside ``torch.cumsum``."""
+    import torch
+
+    from repro_torch.kernels import delta_decode as dd
+
+    lane = (g.keys & 0xFFFFFFFF).to(torch.int32)  # pad slots wrap to -1, as int32 does
+    rows = lane[: lane.shape[0] // 128 * 128].view(-1, 128)
+    anchors = rows[:, 0].contiguous()
+    deltas = torch.diff(rows, dim=1, prepend=rows[:, :1])  # column 0 = 0; int32 wraps
+    R, L = deltas.shape
+    kern = lambda: dd.delta_decode_padded(anchors, deltas)  # noqa: E731
+    plain = lambda: dd.delta_decode_padded_plain(anchors, deltas)  # noqa: E731
+    lib = lambda: torch.cumsum(deltas, 1, dtype=torch.int32) + anchors[:, None]  # noqa: E731
+    err = check_equal(kern(), plain(), "scale_decode padded")
+    check_equal(kern(), rows, "scale_decode padded vs the lane")
+    bound_ms, bound_by = padded_decode_bound(R, L)
+    out = {"phase": "scale_decode", "name": "delta_decode_padded", "R": R, "L": L,
+           "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # compressed phases
 # ---------------------------------------------------------------------------
 
@@ -568,6 +798,7 @@ def phase_compressed_stream(plain_stream) -> dict:
     from repro_torch.core import streaming as st
     from repro_torch.core.traversal import CompressedEngine, flat_graph_of
     from repro_torch.data.rmat import rmat_communities
+    from repro_torch.kernels import delta_decode as dd
     from repro_torch.kernels import segment_reduce as sr
 
     t_phase = time.perf_counter()
@@ -654,6 +885,7 @@ def phase_compressed_stream(plain_stream) -> dict:
         publish_s.append(time.perf_counter() - t)
 
     sr.reset_launches()
+    dd.reset_launches()
     for b in range(n_batches):  # each batch: an insert publish, then a delete publish
         rows = updates[b * batch:(b + 1) * batch]
         publish(stream.insert_edges, rows[rows[:, 2] == 0, :2])
@@ -664,8 +896,9 @@ def phase_compressed_stream(plain_stream) -> dict:
     weights = rng.integers(1, 10, size=wedges.shape[0]).astype(np.float64)
     publish(stream.insert_edges, wedges, weights=weights)
     check_version()
-    launches = dict(sr.LAUNCHES)
-    for name in ("segment_sum_chunked_adaptive", "segment_sum_weighted_chunked_adaptive"):
+    launches = {**sr.LAUNCHES, **dd.LAUNCHES}
+    for name in ("segment_sum_chunked_adaptive", "segment_sum_weighted_chunked_adaptive",
+                 "delta_decode_chunked_adaptive"):
         if launches[name] == 0:
             raise AssertionError(f"compressed_stream: {name} was never launched: {launches}")
     kernel_check = compressed_stream_kernel_check(stream.engine("torch"))
@@ -758,6 +991,7 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
     from repro_torch.core import flat_graph as fg
     from repro_torch.core.traversal import algorithms as talg
     from repro_torch.core.traversal import torch_backend as tb
+    from repro_torch.kernels import delta_decode as dd
     from repro_torch.kernels import segment_reduce as sr
 
     t_phase = time.perf_counter()
@@ -813,6 +1047,7 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
 
     layouts, lanes = {}, {}
     sr.reset_launches()
+    dd.reset_launches()
     for name, graph, kw in (("adaptive", g, {}), ("fixed2", g, {"width": 2}),
                             ("adaptive_weighted", gw, {}), ("fixed2_weighted", gw, {"width": 2})):
         tag = "weighted" if graph is gw else "plain"
@@ -844,8 +1079,8 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
         lanes[name] = eng.caux
         del eng, cg
         torch.cuda.empty_cache()
-    launches = dict(sr.LAUNCHES)
-    for k in CHUNKED_KERNELS:
+    launches = {**sr.LAUNCHES, **dd.LAUNCHES}
+    for k in CHUNKED_KERNELS + DECODE_KERNELS[:2]:
         if launches[k] == 0:
             raise AssertionError(f"compressed_scale: {k} was never launched: {launches}")
     out.update(layouts=layouts, launches=launches)
@@ -879,9 +1114,27 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
                 "library_ms": None,
             })
         del dec
-    out.update(kernels=cases, phase_s=time.perf_counter() - t_phase)
+
+    # each chunked decode kernel on its layout's source lane (the lane
+    # every compressed PageRank iteration decodes; the weighted layouts
+    # hold the same edges), against its plain version, exactly
+    decode_cases = []
+    for name in ("adaptive", "fixed2"):
+        s = lanes[name].srcbd_c
+        kern, plain = decode_calls(s)
+        err = check_equal(kern(), plain(), f"compressed_scale {name} srcbd_c decode")
+        bound_ms, bound_by = chunked_decode_bound(s)
+        decode_cases.append({
+            "name": "delta_decode_chunked" + ("_adaptive" if s.hi is not None else ""),
+            "layout": name, "lane": "srcbd_c", "R": s.deltas.shape[0], "K": s.k,
+            "wide": 0 if s.wide is None else int(s.wide.sum()),
+            "escapes": int((s.ovf_pos < cz.CHUNK).sum()), "stream_bytes": cz.stream_nbytes(s),
+            "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    out.update(kernels=cases, decode_kernels=decode_cases, phase_s=time.perf_counter() - t_phase)
     emit(out)
-    return launches, cases
+    return launches, cases + decode_cases
 
 
 def main() -> int:
@@ -902,9 +1155,12 @@ def main() -> int:
 
     phase_env(smi)
     phase_kernels()
+    phase_decode_kernels()
     stream_launches, plain_stream = phase_stream()
+    host_launches = phase_host_decode(plain_stream)
     g, aux, scale_launches = phase_scale()
     cases = phase_scale_kernels(g, aux)
+    padded = phase_scale_decode(g)
     plain_raises = plain_scale_graph_raises(g)
     del g, aux  # the 2^22 flat scale graph leaves the card here
     gc.collect()
@@ -947,6 +1203,26 @@ def main() -> int:
             "bound_by": c["bound_by"],
             "library_ms": None,
             "raw_kernel_ms": c["raw_kernel_ms"],
+        })
+    replaces = dict(zip(DECODE_KERNELS, ("83", "162", "210")))
+    for name in DECODE_KERNELS:
+        if name == "delta_decode_padded":
+            c, launches = padded, host_launches[name]
+        else:
+            c = next(c for c in ccases if c["name"] == name)
+            launches = cstream_launches[name] + cscale_launches[name]
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/delta_decode.cu",
+            "replaces": "src/repro/kernels/delta_decode.py:" + replaces[name],
+            "launches": launches,
+            "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
         })
     print(smi, flush=True)
     emit({"kernels": summary})

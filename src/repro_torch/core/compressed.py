@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from ..kernels import delta_decode
 
 CHUNK = 128  # slots per chunk
 OVF_SLOTS = 8  # default static escape-lane capacity per chunk
@@ -187,36 +188,21 @@ def encode_stream_adaptive(values: torch.Tensor, hi_cap: int, k: int = OVF_SLOTS
     )
 
 
-def hi_rows(wide: torch.Tensor, hi_cap: int) -> torch.Tensor:
-    """int32[R] row of each chunk's high bytes in the compacted plane:
-    ``cumsum(wide) - 1``, clamped into ``[0, hi_cap)`` (narrow chunks
-    never read it)."""
-    idx = torch.cumsum(wide.to(torch.int32), 0, dtype=torch.int32) - 1
-    return idx.clamp_(0, max(hi_cap - 1, 0))
-
-
 def adaptive_deltas(c: ChunkedStream) -> torch.Tensor:
     """Per-slot int32 deltas of an adaptive stream's lane (escapes still
     0): the width select ``wide ? hi * 256 + (lane & 0xFF) : lane``."""
-    lane = c.deltas.to(torch.int32)
-    if c.hi_cap == 0:
-        # no wide chunk can exist without spilling; the lane is exact
-        return lane
-    hi_g = c.hi.to(torch.int32)[hi_rows(c.wide, c.hi_cap).long()]
-    return torch.where(c.wide[:, None], hi_g * 256 + (lane & 0xFF), lane)
+    return delta_decode.adaptive_deltas(c.deltas, c.hi, c.wide)
 
 
 def decode_rows(c: ChunkedStream) -> torch.Tensor:
     """Decode to (R, CHUNK) int32 rows: anchor + row cumsum, with each
-    escape's delta added at its column first (equal to the reference's
-    per-column step corrections; integer sums are exact)."""
-    d = adaptive_deltas(c) if c.hi is not None else c.deltas.to(torch.int32)
-    R = d.shape[0]
-    steps = torch.zeros((R, CHUNK + 1), dtype=torch.int32, device=d.device)
-    pos = c.ovf_pos.long().clamp(0, CHUNK)  # unused slots (CHUNK) hit the sink column
-    steps.scatter_add_(1, pos, c.ovf_add.to(torch.int32))
-    d = d + steps[:, :CHUNK]
-    return c.anchors[:, None] + torch.cumsum(d, dim=1, dtype=torch.int32)
+    escape's delta added at its column.  A stream on the card goes
+    through the decode kernel of its layout (``kernels/delta_decode``),
+    one on the CPU through its plain version."""
+    if c.hi is not None:
+        return delta_decode.delta_decode_chunked_adaptive(
+            c.anchors, c.deltas, c.hi, c.wide, c.ovf_pos, c.ovf_add)
+    return delta_decode.delta_decode_chunked(c.anchors, c.deltas, c.ovf_pos, c.ovf_add)
 
 
 def decode_stream(c: ChunkedStream, length: int | None = None) -> torch.Tensor:

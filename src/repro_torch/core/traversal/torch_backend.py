@@ -32,10 +32,11 @@ Where the reference differs from eager PyTorch:
     exact.
 
 ``CompressedEngine`` serves the same query loops from a compressed resident
-snapshot: each query decodes the pool and the aux lanes with torch ops
-(``_inflate``; the reference does the same decode in XLA, with no Pallas
-kernel), except ``edge_map_reduce``, whose chunked segment-sum kernels
-decode the dst lane inside the kernel.
+snapshot: each query decodes the pool and the aux lanes it reads
+(``_inflate``, through ``compressed.decode_rows``, which runs the chunked
+decode kernels on the card; the reference decodes in XLA), and
+``edge_map_reduce`` decodes its source lane the same way while its
+chunked segment-sum kernels decode the dst lane inside the kernel.
 
 Precision: state and reduces are float32, the reference's default.
 """

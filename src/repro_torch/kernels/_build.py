@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` into ``build/repro_torch_kernels/``
-at the repo root (git-ignored), keyed on a hash of the source and the
-flags so an edited source rebuilds.  Builds start at first use — never at
+at the repo root (git-ignored), keyed on a hash of the source, every
+``csrc/*.cuh`` header and the flags, so an edited source or header
+rebuilds.  Builds start at first use — never at
 import — and ``build_all`` starts one ``nvcc`` per source at once.
 
 No fallback: a missing ``nvcc`` or a failed build raises.  PyTorch's
@@ -20,6 +21,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -52,6 +55,9 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -98,3 +104,31 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = build_all()[name]
     return lib
+
+
+def check_operands(tensors) -> torch.device:
+    """The one device every operand lies on (CPU or CUDA); raises unless
+    all are contiguous."""
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all operands must be on one device")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all operands must be contiguous")
+    return dev
+
+
+def launch(name: str, fn_name: str, args: list, device: torch.device) -> None:
+    """Call the C entry point ``fn_name`` of ``csrc/<name>.cu`` with
+    ``args`` (tensors go as pointers, ctypes scalars as typed) and the
+    device's current stream; raises on the cudaError it returns."""
+    args = [ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a for a in args]
+    fn = getattr(library(name), fn_name)
+    fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")

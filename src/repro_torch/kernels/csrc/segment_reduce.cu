@@ -46,7 +46,11 @@
 // not fused in here; the group size is a fixed rule, not autotuned.
 #include <cuda_runtime.h>
 
+#include "chunk_decode.cuh"
+
 namespace {
+
+using namespace repro_chunk;  // NOLINT: the shared chunk-row decode
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -149,12 +153,10 @@ int launch(const int* dst, const float* w, const float* msg, float* out, long lo
 // The TPU kernels decode each tile in the prologue and feed the one-hot
 // MXU product.  Here pass 2 never reads dst (only bounds), so only pass 1
 // changes: it decodes as it bounds, and decoded ids never reach HBM.
-//   * One warp per chunk row, 4 slots per lane.  Each lane loads its 4
-//     deltas (fixed: int8 or int16; adaptive wide: hi * 256 + (lane &
-//     0xFF), with the hi row hi_row[r] = cumsum(wide) - 1 computed by the
-//     wrapper in O(R), so no (R, 128) gathered plane is built), adds the
-//     escapes that fall in its slots (table entries broadcast by shuffle),
-//     and a warp inclusive scan plus the anchor gives the decoded ids.
+//   * One warp per chunk row decodes it with chunk_decode.cuh's
+//     decode_row (4 slots per lane, width select, escapes by shuffle, a
+//     warp scan plus the anchor; the hi plane read through an O(R) row
+//     index), the same text as the standalone decode (delta_decode.cu).
 //   * Pass 1 writes, for each slot e, bounds[x] = e + 1 for x in
 //     (key(e), key(e + 1)], key clamping to [-1, n_out] as
 //     segment_bounds_kernel does.  key(e + 1) of a row's last slot is the
@@ -170,43 +172,7 @@ int launch(const int* dst, const float* w, const float* msg, float* out, long lo
 // per slot to the stream's bytes (about 1.5 per slot for int8 chunks with
 // their escape table, 2.5 for int16), messages and output are unchanged.
 
-constexpr int kChunk = 128;
-constexpr int kSlotsPerLane = kChunk / 32;
-
-struct ChunkedLane {
-  const int* anchors;         // int32[R]
-  const void* deltas;         // int8 or int16 [R, 128]
-  const signed char* hi;      // adaptive: int8[H, 128]
-  const unsigned char* wide;  // adaptive: bool[R]
-  const int* hi_row;          // adaptive: int32[R], row of each chunk in hi
-  const int* ovf_pos;         // int32[R, K]
-  const int* ovf_add;         // int32[R, K]
-  long long R;
-  int K;
-  int H;
-};
-
 __device__ __forceinline__ int clamp_key(int v, int n_out) { return min(max(v, -1), n_out); }
-
-template <bool kAdaptive>
-__device__ __forceinline__ bool is_wide(const ChunkedLane& c, long long r) {
-  return kAdaptive && c.H > 0 && c.wide[r] != 0;
-}
-
-template <int kWidth, bool kAdaptive>
-__device__ __forceinline__ unsigned slot_delta(const ChunkedLane& c, long long r, int col,
-                                               bool wide, int hrow) {
-  int v;
-  if (kWidth == 1) {
-    v = static_cast<const signed char*>(c.deltas)[r * kChunk + col];
-  } else {
-    v = static_cast<const short*>(c.deltas)[r * kChunk + col];
-  }
-  if (kAdaptive && wide) {
-    v = static_cast<int>(c.hi[static_cast<long long>(hrow) * kChunk + col]) * 256 + (v & 0xFF);
-  }
-  return static_cast<unsigned>(v);
-}
 
 // Decoded id at column 0 of row r.
 template <int kWidth, bool kAdaptive>
@@ -227,35 +193,9 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const long long r = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (r >= c.R) return;  // warp-uniform
-  const bool wide = is_wide<kAdaptive>(c, r);
-  const int hrow = wide ? c.hi_row[r] : 0;
   const int c0 = lane * kSlotsPerLane;
-  unsigned d[kSlotsPerLane];
-#pragma unroll
-  for (int j = 0; j < kSlotsPerLane; ++j) d[j] = slot_delta<kWidth, kAdaptive>(c, r, c0 + j, wide, hrow);
-  // escapes: lane j < K holds entry j of the row's table; each is added at
-  // its column (a negative column acts at column 0, as in decode_rows)
-  int p = kChunk, a = 0;
-  if (lane < c.K) {
-    p = c.ovf_pos[r * c.K + lane];
-    a = c.ovf_add[r * c.K + lane];
-  }
-  for (int j = 0; j < c.K; ++j) {
-    const int pj = max(__shfl_sync(full, p, j), 0);
-    const int aj = __shfl_sync(full, a, j);
-    if (pj >= c0 && pj < c0 + kSlotsPerLane) d[pj - c0] += static_cast<unsigned>(aj);
-  }
-#pragma unroll
-  for (int j = 1; j < kSlotsPerLane; ++j) d[j] += d[j - 1];
-  unsigned incl = d[kSlotsPerLane - 1];
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned t = __shfl_up_sync(full, incl, off);
-    if (lane >= off) incl += t;
-  }
-  const unsigned base = static_cast<unsigned>(c.anchors[r]) + (incl - d[kSlotsPerLane - 1]);
   int v[kSlotsPerLane];
-#pragma unroll
-  for (int j = 0; j < kSlotsPerLane; ++j) v[j] = static_cast<int>(base + d[j]);
+  decode_row<kWidth, kAdaptive>(c, r, lane, v);
   int next = __shfl_down_sync(full, v[0], 1);
   if (lane == 31) next = r + 1 < c.R ? first_id<kWidth, kAdaptive>(c, r + 1) : n_out;
   const long long e0 = r * kChunk + c0;

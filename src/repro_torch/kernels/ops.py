@@ -1,21 +1,110 @@
 """Public wrappers the engine calls (never the kernel modules directly).
 
-Counterpart of ``repro/kernels/ops.py:177-235`` and ``:299-378``.  The
-reference pads the edge axis to whole edge blocks with an out-of-range
-dst (chunked: whole chunk rows with an out-of-range anchor) and adds one
+Counterpart of ``repro/kernels/ops.py:57-142`` (delta decode),
+``:177-235`` and ``:299-378`` (segment sums).  The reference pads the
+edge axis to whole edge blocks with an out-of-range dst (chunked: whole
+chunk rows with an out-of-range anchor) and adds one
 extra destination block to swallow the padding.  The Hopper kernels take
 ragged shapes as they are and never visit a row at or past ``n_out``, so
 the same contract — any ``dst >= n_out`` is dropped — holds with no
 padding.  The reference also gathers an adaptive stream's compacted hi
 plane into an aligned (R, CHUNK) transient (``_gather_hi``); the Hopper
 kernels read the compacted plane through an O(R) row index instead.
-Launch shapes are fixed (no autotuner consult yet).
+The decode wrappers need no padding either: the padded decode kernel
+takes any row count and length, the chunked ones any row count.  Launch
+shapes are fixed (no autotuner consult yet).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from . import segment_reduce
+from .._device import resolve
+from ..core.chunks import PackedDeltas
+from . import delta_decode, segment_reduce
+
+
+# ---------------------------------------------------------------------------
+# delta decode (C-tree chunk decompression)
+# ---------------------------------------------------------------------------
+
+
+def decode_chunks(anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """Decode padded chunk deltas to absolute values: int32 (R, L) with
+    ``out[i, j] = anchors[i] + sum(deltas[i, 1:j+1])``.  Column 0 is the
+    anchor position: whatever a caller left there is dropped (normalized
+    to 0), as the reference does."""
+    d = deltas.to(torch.int32).clone()
+    if d.shape[1]:
+        d[:, 0] = 0  # enforce the anchor-column invariant
+    return delta_decode.delta_decode_padded(anchors.to(torch.int32).contiguous(), d)
+
+
+def decode_chunked_stream(
+    anchors: torch.Tensor,
+    deltas: torch.Tensor,
+    ovf_pos: torch.Tensor,
+    ovf_add: torch.Tensor,
+    hi: torch.Tensor | None = None,
+    wide: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Decode escape-lane chunk rows (a ``core/compressed.ChunkedStream``'s
+    arrays) to int32 (R, L).  Pass ``hi``/``wide`` for adaptive streams;
+    the compacted hi plane is read through an O(R) row index, with no
+    gathered (R, L) plane."""
+    a, d = anchors.to(torch.int32).contiguous(), deltas.contiguous()
+    p, v = ovf_pos.to(torch.int32).contiguous(), ovf_add.to(torch.int32).contiguous()
+    if hi is None:
+        return delta_decode.delta_decode_chunked(a, d, p, v)
+    return delta_decode.delta_decode_chunked_adaptive(a, d, hi.contiguous(), wide.contiguous(),
+                                                      p, v)
+
+
+def pool_rows(packed: PackedDeltas, device=None):
+    """A host C-tree's ``chunks.PackedDeltas`` pool as padded rows on
+    ``device`` (default the card): ``(anchors int32 (n_chunks,), rows
+    int32 (n_chunks, L), slot int64 (n,))`` with L the longest chunk,
+    escapes substituted, and pool element e at ``rows.view(-1)[slot[e]]``.
+    The pool travels as it is stored; the rows are built there by one
+    scatter."""
+    if not isinstance(packed, PackedDeltas):
+        raise TypeError(f"expected a chunks.PackedDeltas, got {type(packed).__name__}")
+    dev = resolve(device)
+    offs_np = np.asarray(packed.chunk_off, dtype=np.int64)
+    n_chunks = max(offs_np.size - 1, 0)
+    raw = np.asarray(packed.deltas)
+    wide = raw.dtype == np.uint16
+    # uint16 travels as its int16 bit pattern (torch's uint16 has few ops)
+    d = torch.from_numpy(raw.view(np.int16) if wide else raw).to(dev).to(torch.int32)
+    if wide:
+        d &= 0xFFFF
+    esc = np.iinfo(raw.dtype).max
+    over = torch.from_numpy(np.asarray(packed.overflow, dtype=np.int64)).to(dev)
+    d.masked_scatter_(d == esc, over.to(torch.int32))  # escapes, in pool order
+    offs = torch.from_numpy(offs_np).to(dev)
+    lens = torch.diff(offs)
+    L = max(int(lens.max()), 1) if n_chunks else 0
+    chunk_of = torch.repeat_interleave(torch.arange(n_chunks, device=dev), lens)
+    slot = chunk_of * L + (torch.arange(d.shape[0], device=dev) - offs[chunk_of])
+    rows = torch.zeros((n_chunks, L), dtype=torch.int32, device=dev)
+    rows.view(-1)[slot] = d
+    anchors = torch.from_numpy(np.asarray(packed.anchors, dtype=np.int64)).to(dev)
+    return anchors.to(torch.int32), rows, slot
+
+
+def decode_pool(packed: PackedDeltas, device=None) -> np.ndarray:
+    """Decode a host C-tree's ``chunks.PackedDeltas`` pool through the
+    padded decode on ``device`` (default the card): int64 (n,) equal to
+    ``chunks.unpack_deltas(packed)`` for ids that fit int32."""
+    anchors, rows, slot = pool_rows(packed, device)
+    if rows.shape[0] == 0:
+        return np.empty(0, dtype=np.int64)
+    return decode_chunks(anchors, rows).view(-1)[slot].to(torch.int64).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# segment reduce
+# ---------------------------------------------------------------------------
 
 
 def segment_sum(dst: torch.Tensor, msg: torch.Tensor, n_out: int) -> torch.Tensor:

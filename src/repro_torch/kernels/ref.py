@@ -1,6 +1,6 @@
 """Oracles for the port's kernels (the correctness contracts).
 
-Counterpart of ``repro/kernels/ref.py:20-41``.  Each oracle computes the
+Counterpart of ``repro/kernels/ref.py:13-41``.  Each oracle computes the
 kernel's function the most direct way — a float64 scatter-add, no
 sortedness assumed; a decode as anchor + cumsum plus one step per escape
 — so tests can hold both the kernel and its plain version against it.
@@ -26,6 +26,12 @@ def segment_sum_weighted_sorted_ref(
         rows = rows * w.double()[keep][:, None]
     out = torch.zeros((n_out, msg.shape[1]), dtype=torch.float64, device=msg.device)
     return out.index_add_(0, dst[keep], rows)
+
+
+def delta_decode_ref(anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """Padded decode oracle: out[i, j] = anchors[i] + sum(deltas[i, :j+1])
+    (column 0 of deltas is 0), int64 throughout, cut to int32 at the end."""
+    return (anchors.long()[:, None] + torch.cumsum(deltas.long(), dim=1)).to(torch.int32)
 
 
 def delta_decode_chunked_ref(

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from ..core import compressed as cz
-from . import _build
+from . import _build, delta_decode
 
 # Launches of each kernel in this process (bumped only where the kernel
 # is launched, never by the plain versions).
@@ -54,20 +54,11 @@ def _check_msg(E: int, msg: torch.Tensor, n_out: int, w: torch.Tensor | None) ->
         raise ValueError(f"n_out out of int32 range: {n_out}")
 
 
-def _check_placement(tensors) -> None:
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("all operands must be on one device")
-    if tensors[0].device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {tensors[0].device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("all operands must be contiguous")
-
-
 def _check(dst: torch.Tensor, msg: torch.Tensor, n_out: int, w: torch.Tensor | None) -> None:
     if dst.dtype != torch.int32 or dst.dim() != 1:
         raise TypeError(f"dst must be int32 (E,), got {dst.dtype} {tuple(dst.shape)}")
     _check_msg(dst.shape[0], msg, n_out, w)
-    _check_placement([dst, msg] + ([] if w is None else [w]))
+    _build.check_operands([dst, msg] + ([] if w is None else [w]))
 
 
 def _plain(dst, msg, n_out, w=None):
@@ -89,25 +80,13 @@ def segment_sum_weighted_sorted_plain(
     return _plain(dst, msg, n_out, w)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int) -> torch.Tensor:
-    lib = _build.library("segment_reduce")
-    fn = getattr(lib, fn_name)
     E, D = msg.shape
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
     bounds = torch.empty(n_out + 1, dtype=torch.int64, device=msg.device)  # scratch
-    stream = torch.cuda.current_stream(msg.device).cuda_stream
-    ptrs = [_ptr(dst)] + ([] if w is None else [_ptr(w)]) + [_ptr(msg), _ptr(out), _ptr(bounds)]
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(msg.device):
-        rc = fn(*ptrs, E, D, n_out, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+    args = [dst] + ([] if w is None else [w]) + [msg, out, bounds]
+    args += [ctypes.c_longlong(E), ctypes.c_int(D), ctypes.c_int(n_out)]
+    _build.launch("segment_reduce", fn_name, args, msg.device)
     LAUNCHES[counter] += 1
     return out
 
@@ -156,19 +135,25 @@ def _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, w=None, hi=Non
         if wide is None or wide.dtype != torch.bool or tuple(wide.shape) != (R,):
             raise TypeError(f"wide must be bool ({R},)")
     _check_msg(R * cz.CHUNK, msg, n_out, w)
-    _check_placement([t for t in (anchors, deltas, ovf_pos, ovf_add, hi, wide, w, msg)
-                      if t is not None])
+    _build.check_operands([t for t in (anchors, deltas, ovf_pos, ovf_add, hi, wide, w, msg)
+                           if t is not None])
 
 
 def _decoded(anchors, deltas, ovf_pos, ovf_add, hi=None, wide=None) -> torch.Tensor:
-    spill = torch.zeros((), dtype=torch.bool, device=anchors.device)
-    return cz.decode_stream(cz.ChunkedStream(anchors, deltas, ovf_pos, ovf_add, spill, hi, wide))
+    """The flat decoded lane by the decode's plain version (never its
+    kernel, so a kernel here is held against plain code only)."""
+    if hi is None:
+        rows = delta_decode.delta_decode_chunked_plain(anchors, deltas, ovf_pos, ovf_add)
+    else:
+        rows = delta_decode.delta_decode_chunked_adaptive_plain(anchors, deltas, hi, wide,
+                                                                ovf_pos, ovf_add)
+    return rows.reshape(-1)
 
 
 def segment_sum_sorted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, msg, n_out, hi=None,
                                      wide=None) -> torch.Tensor:
     """Plain PyTorch version of the chunked kernels (fixed, or adaptive
-    with ``hi``/``wide``): ``decode_rows``, drop ``dst >= n_out``, then
+    with ``hi``/``wide``): the plain decode, drop ``dst >= n_out``, then
     ``index_add_``."""
     return _plain(_decoded(anchors, deltas, ovf_pos, ovf_add, hi, wide), msg, n_out)
 
@@ -192,27 +177,19 @@ _CHUNKED = {
 def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) -> torch.Tensor:
     adaptive, weighted = hi is not None, w is not None
     counter, fn_name = _CHUNKED[(weighted, adaptive)]
-    fn = getattr(_build.library("segment_reduce"), fn_name)
     R, K = ovf_pos.shape
     D = msg.shape[1]
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
     bounds = torch.empty(n_out + 1, dtype=torch.int64, device=msg.device)  # scratch
-    stream = torch.cuda.current_stream(msg.device).cuda_stream
-    ptrs = [_ptr(anchors), _ptr(deltas)]
+    args = [anchors, deltas]
     if adaptive:
-        hi_row = cz.hi_rows(wide, hi.shape[0])  # O(R); no (R, CHUNK) gathered plane
-        ptrs += [_ptr(hi), _ptr(wide), _ptr(hi_row), ctypes.c_int(hi.shape[0])]
+        hi_row = delta_decode.hi_rows(wide, hi.shape[0])  # O(R); no (R, CHUNK) gathered plane
+        args += [hi, wide, hi_row, ctypes.c_int(hi.shape[0])]
     else:
-        ptrs += [ctypes.c_int(deltas.element_size())]
-    ptrs += [_ptr(ovf_pos), _ptr(ovf_add)] + ([_ptr(w)] if weighted else [])
-    ptrs += [_ptr(msg), _ptr(out), _ptr(bounds)]
-    fn.argtypes = [type(p) for p in ptrs] + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(msg.device):
-        rc = fn(*ptrs, R, K, D, n_out, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+        args += [ctypes.c_int(deltas.element_size())]
+    args += [ovf_pos, ovf_add] + ([w] if weighted else []) + [msg, out, bounds]
+    args += [ctypes.c_longlong(R), ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(n_out)]
+    _build.launch("segment_reduce", fn_name, args, msg.device)
     LAUNCHES[counter] += 1
     return out
 
