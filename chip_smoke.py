@@ -27,8 +27,9 @@ checks every result.  One JSON object per phase goes to stdout:
           ``AspenStream(compressed=True)`` at 2^18 vertices on 8 disjoint
           rMAT communities of 2^15 vertices (first showing that the stream
           phase's plain rMAT tree raises, as the reference's layout does),
-          every publish held against a rebuild and the numpy engine, and
-          both adaptive kernels held against their plain versions on the
+          each of the 9 publishes held against its host tree, decoded
+          once, and the numpy engine on that decode, and both adaptive
+          kernels held against their plain versions on the
           last version's own lane (D = 1 and 8);
   compressed_scale
           with the flat scale graph freed, 128 disjoint rMAT
@@ -55,6 +56,27 @@ checks every result.  One JSON object per phase goes to stdout:
           the padded kernel on the scale phase's pool dst lane cut into
           128-slot rows (67 M real ids), against its plain version and
           ``torch.cumsum``.
+
+  gnn_kernels
+          the fanout and block SpMM kernels against their plain versions:
+          fanout mean / sum / max with bool, fractional and empty-bag
+          masks at B = 1, B not a multiple of 8, the reference's test
+          shapes and the three full-width GraphSAGE launches; SpMM at
+          n = 256, 300, 2708 and D = 1, 16, 64, 1433 with a nonzero tile
+          masked off and a row of empty tiles;
+  gnn_sampled
+          graphsage-reddit FULL on minibatch_lg: ~114.6 M rMAT edges over
+          232,965 vertices drawn on the card into a flat graph, 602
+          features per vertex, four minibatches of B = 1024 at fanout
+          (15, 10) with 512 edges streamed in between batches; the kernel
+          forward held against the torch expression, every pick checked
+          to be an edge, 3 fanout launches per forward, each timed;
+  gnn_full
+          gcn-cora FULL on full_graph_sm (a 10,562-edge power-law graph
+          at Cora's 2,708 vertices): ``gcn.forward`` on the flat graph
+          held against the CPU, then ``ops.spmm_from_edges`` at D = 16
+          and 1433 held against GCN's segment-sum aggregation and the
+          plain SpMM, timed beside CSR ``torch.sparse.mm``.
 
 The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
 chunk) holds only graphs whose ids have community locality: on plain
@@ -116,14 +138,17 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def check_close(got, want, what: str) -> float:
-    """Kernel vs plain version.  The plain version's ``index_add_`` uses
-    atomics on the card, so its float32 summation order differs from the
-    kernel's fixed order: held to rtol 1e-5 and atol 1e-6 * max|out|."""
+def check_close(got, want, what: str, rtol: float = 1e-5, atol: float | None = None) -> float:
+    """``got`` against ``want`` (a kernel against its plain version, a
+    forward against another path) within rtol and atol; returns
+    max|got - want|.  The plain version's ``index_add_`` uses atomics on
+    the card, so its float32 summation order differs from the kernel's
+    fixed order: by default rtol 1e-5 and atol 1e-6 * max|want|."""
     import torch
 
-    atol = 1e-6 * max(float(want.abs().max()) if want.numel() else 0.0, 1e-30)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol, msg=lambda m: f"{what}: {m}")
+    if atol is None:
+        atol = 1e-6 * max(float(want.abs().max()) if want.numel() else 0.0, 1e-30)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
@@ -137,6 +162,15 @@ def rmat_symmetric_device(log_n: int, n_draws: int, seed: int, communities: int 
     ``communities`` > 1 the draws split into that many equal runs, run c
     over its own 2^log_n ids numbered from c << log_n (disjoint rMAT
     communities).  Returns a host (m, 2) int64 array, sorted by (src, dst)."""
+    import torch
+
+    keys = rmat_keys_device(log_n, n_draws, seed, communities)
+    return torch.stack([keys >> 32, keys & 0xFFFFFFFF], 1).cpu().numpy()
+
+
+def rmat_keys_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
+    """``rmat_symmetric_device``'s edges as packed ``(src << 32) | dst``
+    keys, sorted and unique, left on the card."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -154,8 +188,7 @@ def rmat_symmetric_device(log_n: int, n_draws: int, seed: int, communities: int 
         src, dst = src + off, dst + off
     keys = torch.cat([(src << 32) | dst, (dst << 32) | src])
     keys = torch.unique(keys)
-    keys = keys[(keys >> 32) != (keys & 0xFFFFFFFF)]
-    return torch.stack([keys >> 32, keys & 0xFFFFFFFF], 1).cpu().numpy()
+    return keys[(keys >> 32) != (keys & 0xFFFFFFFF)]
 
 
 def bound(e_valid: int, n_out: int, D: int, weighted: bool):
@@ -797,6 +830,7 @@ def phase_compressed_stream(plain_stream) -> dict:
     from repro_torch.core import graph as G
     from repro_torch.core import streaming as st
     from repro_torch.core.traversal import CompressedEngine, flat_graph_of
+    from repro_torch.core.traversal.numpy_backend import NumpyEngine
     from repro_torch.data.rmat import rmat_communities
     from repro_torch.kernels import delta_decode as dd
     from repro_torch.kernels import segment_reduce as sr
@@ -823,7 +857,7 @@ def phase_compressed_stream(plain_stream) -> dict:
     out.update(n=n, communities=n_comm, community_vertices=1 << log_c,
                edges_generated=int(E0.shape[0]), tree_and_mirror_build_s=time.perf_counter() - t0)
 
-    mirror_s, publish_s, check_s, pr_rel = [], [], [], [0.0]
+    mirror_s, publish_s, check_s, decode_s, pr_rel = [], [], [], [], [0.0]
 
     def timed_mirror(fn):
         def run(*a, **k):
@@ -847,11 +881,17 @@ def phase_compressed_stream(plain_stream) -> dict:
 
     def check_version() -> None:
         t = time.perf_counter()
-        cg = mirror()
+        v = stream.acquire()
+        try:  # the version's mirror, and its tree decoded once on the host
+            cg = v.aux[st.MIRROR]
+            snap = DecodedSnapshot(G.flat_snapshot(v.graph))
+        finally:
+            stream.release(v)
+        decode_s.append(time.perf_counter() - t)
         if not isinstance(cg, fg.CompressedPool) or bool(cg.dst.spill):
             raise AssertionError("compressed_stream: the mirror is not a sound CompressedPool")
-        eng_np = stream.engine("numpy")  # its snapshot is the version's tree, flattened
-        got, want = fg.decompress(cg), flat_graph_of(eng_np.snap, device="cuda")
+        eng_np = NumpyEngine(snap)
+        got, want = fg.decompress(cg), flat_graph_of(snap, device="cuda")
         m = int(want.m)
         if not (int(got.m) == m and torch.equal(got.keys[:m], want.keys[:m])
                 and torch.equal(got.offsets, want.offsets)
@@ -863,18 +903,18 @@ def phase_compressed_stream(plain_stream) -> dict:
             raise AssertionError(f"compressed_stream: engine is {type(eng).__name__}")
         srcs = rng.choice(np.flatnonzero(eng_np.degrees > 0), 16, replace=False)
         if not np.array_equal(stream.query_batch(srcs, kind="bfs"),
-                              stream.query_batch(srcs, kind="bfs", backend="numpy")):
+                              stream._serve_kind(eng_np, "bfs", srcs, {})):
             raise AssertionError("compressed_stream: bfs parents differ from the numpy engine")
         resets = rng.random((8, n))
         resets /= resets.sum(1, keepdims=True)
         got = stream.query_batch(kind="pagerank", resets=resets)
-        want = stream.query_batch(kind="pagerank", backend="numpy", resets=resets)
+        want = stream._serve_kind(eng_np, "pagerank", None, {"resets": resets})
         atol = 1e-6 * float(np.abs(want).max())
         pr_rel[0] = max(pr_rel[0], float((np.abs(got - want) / np.maximum(np.abs(want), atol)).max()))
         if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=PR_RTOL, atol=atol)):
             raise AssertionError(f"compressed_stream: pagerank off (rel {pr_rel[0]})")
         if not np.array_equal(stream.query_batch(srcs[:4], kind="sssp"),
-                              stream.query_batch(srcs[:4], kind="sssp", backend="numpy")):
+                              stream._serve_kind(eng_np, "sssp", srcs[:4], {})):
             raise AssertionError("compressed_stream: sssp distances differ from the numpy engine")
         check_s.append(time.perf_counter() - t)
 
@@ -915,7 +955,7 @@ def phase_compressed_stream(plain_stream) -> dict:
         m=m, batches=n_batches + 1, updates_per_batch=batch, publishes=len(publish_s),
         versions_checked=len(publish_s), pagerank_max_rel_err=pr_rel[0], pagerank_rtol=PR_RTOL,
         mean_publish_s=float(np.mean(publish_s)), mean_mirror_step_s=float(np.mean(mirror_s)),
-        checks_s=float(np.sum(check_s)),
+        checks_s=float(np.sum(check_s)), checks_decode_s=float(np.sum(decode_s)),
         spill_heals=stream.spill_heals, dst_bytes=resident, bytes_ideal=stats["bytes_ideal"],
         spare_hi_rows=spare, dst_bytes_per_edge=resident / m,
         raw_key_bytes_per_edge=8 * cg.edge_capacity / m,
@@ -924,6 +964,32 @@ def phase_compressed_stream(plain_stream) -> dict:
     )
     emit(out)
     return launches
+
+
+class DecodedSnapshot:
+    """A version's host ``FlatSnapshot`` decoded once into a CSR, with the
+    same snapshot protocol (``n``, ``neighbors``, ``degree``, ``degrees``,
+    ``m``, ``weighted``, ``edge_weights``).  The numpy engine on the tree
+    decodes each frontier vertex's chunks again in every sparse round
+    (half of a check's host time); here it slices the one decode, which
+    is the same ``gather_csr`` over the same tree."""
+
+    def __init__(self, snap):
+        from repro_torch.core.traversal.numpy_backend import gather_csr
+
+        self.n, self.weighted, self._snap = snap.n, snap.weighted, snap
+        self.offsets, self.nbrs = gather_csr(snap, np.arange(snap.n, dtype=np.int64))
+        self.degrees = np.diff(self.offsets)
+        self.m = int(self.offsets[-1])
+
+    def neighbors(self, v: int):
+        return self.nbrs[self.offsets[v]:self.offsets[v + 1]]
+
+    def degree(self, v: int) -> int:
+        return int(self.degrees[v])
+
+    def edge_weights(self, srcs, dsts):
+        return self._snap.edge_weights(srcs, dsts)
 
 
 def compressed_stream_kernel_check(eng) -> dict:
@@ -1137,6 +1203,328 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
     return launches, cases + decode_cases
 
 
+# ---------------------------------------------------------------------------
+# GNN phases: GraphSAGE's sampled minibatch on the fanout kernel; GCN and
+# the block SpMM at Cora's size
+# ---------------------------------------------------------------------------
+
+GNN_KERNELS = ("fanout_aggregate", "block_spmm")
+# rMAT draws over 2^18 ids for minibatch_lg: symmetrized, deduplicated and
+# with ids >= 232,965 dropped, 79.2 M draws leave 114,607,538 directed
+# edges (gnn_sampled's ``m``), within 0.01% of minibatch_lg's 114,615,892.
+REDDIT_DRAWS = 79_200_000
+# power_law_graph(2708, 8500, seed=0) symmetrizes to 10,562 directed
+# edges, within 0.1% of full_graph_sm's 10,556 (5278 draws give 6,592).
+CORA_DRAWS = 8500
+
+
+def time_uncounted(fn, reps: int = 20) -> float:
+    """``time_ms`` of a kernel called only to be timed: the GNN launch
+    counts are put back afterwards, so they keep the main path's launches."""
+    from repro_torch.kernels import csr_spmm
+    from repro_torch.kernels import segment_reduce as sr
+
+    saved = [(d, dict(d)) for d in (sr.LAUNCHES, csr_spmm.LAUNCHES)]
+    try:
+        return time_ms(fn, reps)
+    finally:
+        for d, s in saved:
+            d.update(s)
+
+
+def fanout_bound(B: int, K: int, D: int):
+    """Least time (ms) of one fanout reduce: features, mask and output
+    once over HBM; a multiply and an add per feature over the f32 peak."""
+    t_bytes = 4 * (B * K * D + B * K + B * D) / HBM_BYTES_PER_S
+    t_ops = 2 * B * K * D / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def spmm_bound(mask_np, R: int, C: int, n_x: int, D: int):
+    """Least time (ms) of a block SpMM: 2 R C D flops per live tile over
+    the f32 peak; the live tiles, the mask, x and the output once over HBM."""
+    live = int((mask_np > 0).sum())
+    nr, nc = mask_np.shape
+    t_ops = 2 * live * R * C * D / F32_FLOP_PER_S
+    t_bytes = 4 * (live * R * C + nr * nc + n_x * D + nr * R * D) / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), live
+
+
+def fanout_mask(B: int, K: int, kind: str, gen):
+    """A (B, K) float32 mask on the card: ``bool`` 0/1 with column 0 set
+    (as the reference's test makes it), ``fractional`` values in [0, 1)
+    with zeros, ``empty`` the bool mask with every third bag empty."""
+    import torch
+
+    mask = (torch.rand((B, K), generator=gen, device="cuda") < 0.7).float()
+    mask[:, 0] = 1.0
+    if kind == "fractional":
+        mask *= torch.rand((B, K), generator=gen, device="cuda")
+    elif kind == "empty":
+        mask[::3] = 0.0
+    return mask
+
+
+def phase_gnn_kernels() -> None:
+    """Each GNN kernel against its plain version on the card: the fanout
+    at B = 1, B not a multiple of 8, the reference's test shapes and the
+    three full-width GraphSAGE launches, each op and mask kind; the SpMM
+    at n = 256, 300, 2708 and D = 1, 16, 64, 1433 with a nonzero tile
+    masked off and a row of empty tiles (rtol 1e-5, atol 1e-4)."""
+    import torch
+
+    from repro_torch.kernels import csr_spmm
+    from repro_torch.kernels import segment_reduce as sr
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("gnn_kernels: TF32 matmul is on; the plain SpMM must be f32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    fan_err, n_fan = 0.0, 0
+    for B, K, D in [(1, 15, 602), (13, 10, 6), (16, 10, 64), (5, 25, 128),
+                    (15_360, 10, 602), (1024, 15, 602), (1024, 15, 128)]:
+        feats = torch.randn((B, K, D), generator=gen, device="cuda")
+        for kind in ("bool", "fractional", "empty"):
+            mask = fanout_mask(B, K, kind, gen)
+            for op in sr.FANOUT_OPS:
+                fan_err = max(fan_err, check_close(
+                    sr.fanout_aggregate(feats, mask, op), sr.fanout_aggregate_plain(feats, mask, op),
+                    f"fanout {op} {kind} {(B, K, D)}", rtol=1e-6))
+                n_fan += 1
+        del feats
+    spmm = []
+    for n in (256, 300, 2708):
+        rng = np.random.default_rng(SEED + n)
+        E = 4 * n
+        src = rng.integers(0, n, E)
+        dst = rng.integers(0, n - 128, E)  # the last row tile stays empty
+        mask_np, tiles_np, _ = csr_spmm.tiles_from_edges(n, src, dst)
+        forced = tuple(int(v) for v in np.argwhere(mask_np > 0)[0])
+        mask_np[forced] = 0  # a nonzero tile masked off: it must contribute nothing
+        mask, tiles = torch.from_numpy(mask_np).cuda(), torch.from_numpy(tiles_np).cuda()
+        for D in (1, 16, 64, 1433):
+            x = torch.randn((n, D), generator=gen, device="cuda")
+            got = csr_spmm.block_spmm(mask, tiles, x)
+            err = check_close(got, csr_spmm.block_spmm_plain(mask, tiles, x),
+                           f"block_spmm n={n} D={D}", 1e-5, 1e-4)
+            if bool(got[-128:].any()):
+                raise AssertionError(f"block_spmm n={n} D={D}: the empty row tile is not zero")
+            spmm.append({"n": n, "E": E, "D": D, "live_tiles": int((mask_np > 0).sum()),
+                         "tiles": int(mask_np.size), "masked_nonzero_tile": forced,
+                         "max_abs_err": err})
+    emit({"phase": "gnn_kernels",
+          "tolerance": {"fanout": "rtol 1e-6, atol 1e-6*max|out|",
+                        "block_spmm": "rtol 1e-5, atol 1e-4"},
+          "fanout_cases": n_fan, "fanout_max_abs_err": fan_err, "block_spmm_cases": spmm})
+
+
+def phase_gnn_sampled() -> dict:
+    """graphsage-reddit FULL on minibatch_lg: a card-resident flat graph
+    of ~114.6 M rMAT edges over Reddit's 232,965 vertices, 602 features
+    per vertex, four minibatches of B = 1024 at fanout (15, 10) with 512
+    random edges streamed in before each batch after the first.  Each
+    forward on the fanout kernel is held against the torch expression on
+    the same sample (rtol 1e-5, atol 1e-5 * max|logits|), and every
+    sampled id is checked to be an edge of the snapshot it was drawn from."""
+    import torch
+
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.core import flat_ctree as fct
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.data.pipeline import NeighborSampler
+    from repro_torch.kernels import csr_spmm
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.models.gnn import graphsage
+
+    cfg, shape = graphsage_reddit.FULL, GNN_SHAPES["minibatch_lg"]
+    n, B, d = shape["n_nodes"], shape["batch_nodes"], shape["d_feat"]
+    f1, f2 = shape["fanout"]
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "gnn_sampled", "config": cfg.name, "shape": "minibatch_lg", "n": n,
+           "B": B, "fanout": [f1, f2], "d_feat": d, "d_hidden": cfg.d_hidden,
+           "n_classes": cfg.n_classes, "allocated_at_start_bytes": torch.cuda.memory_allocated()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def build():
+        keys = rmat_keys_device(18, REDDIT_DRAWS, seed=15)
+        keys = keys[((keys >> 32) < n) & ((keys & 0xFFFFFFFF) < n)]
+        empty = fg.from_edges(n, np.zeros((0, 2), np.int64), device="cuda")
+        return fg.insert_edges_device(empty, fct.from_device(keys, keys.numel()))
+
+    g, out["build_s"] = timed(build)
+    out.update(m=int(g.m), target_edges=shape["n_edges"], rmat_draws=REDDIT_DRAWS,
+               edge_capacity=g.edge_capacity)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    feats = torch.randn((n, d), generator=gen, device="cuda")
+    params = graphsage.init(gen, d, cfg.d_hidden, cfg.n_classes, device="cuda")
+    l1 = params["layers"][0]
+    rng = np.random.default_rng(SEED + 15)
+    out["graph_peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    sr.reset_launches()
+    csr_spmm.reset_launches()
+    batches = []
+    for step in range(4):
+        res = {"step": step}
+        if step:
+            new = torch.from_numpy(rng.integers(0, n, (512, 2))).cuda()
+            m_before = int(g.m)
+            g, res["insert_s"] = timed(lambda: fg.insert_edges_device(
+                g, fct.from_device((new[:, 0] << 32) | new[:, 1], 512)))
+            if not bool(fg.has_edge(g, new[:, 0], new[:, 1]).all()):
+                raise AssertionError("gnn_sampled: an inserted edge is missing")
+            res["inserted"] = int(g.m) - m_before
+        sampler = NeighborSampler(g.offsets, g.keys[: int(g.m)] & 0xFFFFFFFF, feats)
+        sample, res["host_draw_s"] = timed(lambda: sampler.sample_ids(SEED, step, B, (f1, f2)))
+        b, res["device_gather_s"] = timed(lambda: sampler.gather(sample))
+        before = sr.LAUNCHES["fanout_aggregate"]
+        logits, res["forward_s"] = timed(lambda: graphsage.forward_sampled(
+            params, b["x_self"], b["neigh_feats"], b["neigh_masks"], use_kernel=True))
+        res["launches"] = sr.LAUNCHES["fanout_aggregate"] - before
+        if res["launches"] != 3:
+            raise AssertionError(f"gnn_sampled: {res['launches']} fanout launches, not 3")
+        plain, res["forward_plain_s"] = timed(lambda: graphsage.forward_sampled(
+            params, b["x_self"], b["neigh_feats"], b["neigh_masks"], use_kernel=False))
+        if tuple(logits.shape) != (B, cfg.n_classes) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"gnn_sampled: logits {tuple(logits.shape)} not finite")
+        res["max_abs_err"] = check_close(logits, plain, f"gnn_sampled step {step}", 1e-5,
+                                      1e-5 * float(plain.abs().max()))
+        # the sample is real: each valid pick is an edge of this snapshot
+        (n1, n2), (m1, m2) = sample["ids"], sample["neigh_masks"]
+        seeds = sample["seeds"]
+        deg = torch.diff(g.offsets)
+        if not (torch.equal(m1, (deg[seeds] > 0)[:, None].expand(-1, f1))
+                and bool(fg.has_edge(g, seeds[:, None].expand(-1, f1)[m1], n1[m1]).all())
+                and bool(fg.has_edge(g, n1[:, :, None].expand(-1, -1, f2)[m2], n2[m2]).all())):
+            raise AssertionError(f"gnn_sampled step {step}: a sampled pick is not an edge")
+        res["valid_picks"] = [int(m1.sum()), int(m2.sum())]
+        # each launch of this forward, timed alone on its own inputs
+        nf0, nf1 = b["neigh_feats"]
+        mf1, mf2 = m1.float(), m2.reshape(-1, f2).float()
+        agg2 = sr.fanout_aggregate_plain(nf1.reshape(-1, f2, d), mf2).reshape(B, f1, d)
+        h1 = torch.relu(nf0 @ l1["w_self"] + agg2 @ l1["w_neigh"])
+        launches = []
+        for f, m in ((nf1.reshape(-1, f2, d), mf2), (nf0, mf1), (h1, mf1)):
+            bound_ms, bound_by = fanout_bound(*f.shape)
+            launches.append({"shape": list(f.shape), "read_bytes": 4 * f.numel(),
+                             "ms": time_uncounted(lambda: sr.fanout_aggregate(f, m, "mean")),
+                             "bound_ms": bound_ms, "bound_by": bound_by})
+        res["fanout_launches"] = launches
+        batches.append(res)
+        emit({"phase": "gnn_sampled_batch", **res})
+    out["launches"] = dict(sr.LAUNCHES)  # read just after the main path
+    if out["launches"]["fanout_aggregate"] != 12:
+        raise AssertionError(f"gnn_sampled: {out['launches']} (12 fanout launches expected)")
+    out["batches"] = batches
+    # the kernel row: the largest launch of the last batch, as a sum, so
+    # that one library call (einsum) computes the same function; the
+    # path's own op, mean, is timed beside it
+    f, m = nf1.reshape(-1, f2, d), mf2
+    kern = sr.fanout_aggregate(f, m, "sum")
+    bound_ms, bound_by = fanout_bound(*f.shape)
+    out["fanout_row"] = {
+        "shape": list(f.shape), "op": "sum",
+        "max_abs_err": check_close(kern, sr.fanout_aggregate_plain(f, m, "sum"),
+                                   "gnn_sampled fanout row", rtol=1e-6),
+        "ms": time_uncounted(lambda: sr.fanout_aggregate(f, m, "sum")),
+        "mean_ms": time_uncounted(lambda: sr.fanout_aggregate(f, m, "mean")),
+        "plain_ms": time_ms(lambda: sr.fanout_aggregate_plain(f, m, "sum")),
+        "library_ms": time_ms(lambda: torch.einsum("bkd,bk->bd", f, m)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
+def phase_gnn_full() -> dict:
+    """gcn-cora FULL on full_graph_sm: ``power_law_graph(2708, 8500)``
+    (10,562 directed edges) in a card flat graph, ``batch_from_flat_graph``
+    and ``gcn.forward`` held against the same forward on the CPU; then
+    ``ops.spmm_from_edges`` on those edges with GCN's normalized weights at
+    D = 16 and 1433, held against GCN's own segment-sum aggregation and
+    against the plain SpMM, and timed beside CSR ``torch.sparse.mm``."""
+    import torch
+
+    from repro_torch.configs import gcn_cora
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.data.pipeline import power_law_graph
+    from repro_torch.kernels import csr_spmm, ops
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.models.gnn import common, gcn
+
+    cfg, shape = gcn_cora.FULL, GNN_SHAPES["full_graph_sm"]
+    n, d = shape["n_nodes"], shape["d_feat"]
+    offsets, nbrs = power_law_graph(n, CORA_DRAWS, seed=SEED)
+    edges = np.stack([np.repeat(np.arange(n), np.diff(offsets)), nbrs], 1)
+    out = {"phase": "gnn_full", "config": cfg.name, "shape": "full_graph_sm", "n": n,
+           "d_feat": d, "power_law_draws": CORA_DRAWS, "edges": int(edges.shape[0]),
+           "target_edges": shape["n_edges"]}
+    g = fg.from_edges(n, edges, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    params = gcn.init(gen, d, cfg.d_hidden, cfg.n_classes, device="cuda")
+
+    sr.reset_launches()
+    csr_spmm.reset_launches()
+    batch = common.batch_from_flat_graph(g, x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = gcn.forward(params, batch)
+    torch.cuda.synchronize()
+    out["gcn_forward_s"] = time.perf_counter() - t
+    if tuple(logits.shape) != (n, cfg.n_classes) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"gnn_full: logits {tuple(logits.shape)} not finite")
+    cpu = gcn.forward({"ws": [w.cpu() for w in params["ws"]]},
+                      common.GraphBatch(*(v.cpu() for v in batch)))
+    out["gcn_vs_cpu_max_abs_err"] = check_close(logits.cpu(), cpu, "gnn_full gcn vs cpu", 1e-5,
+                                             1e-5 * float(cpu.abs().max()))
+    m = int(g.m)
+    src, dst = batch.src[:m], batch.dst[:m]
+    coeff = common.sym_norm_coeff(batch)[:m]
+    src_h, dst_h, vals_h = src.cpu().numpy(), dst.cpu().numpy(), coeff.cpu().numpy()
+    runs = []
+    for D, xd in ((cfg.d_hidden, x @ params["ws"][0]), (d, x)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = ops.spmm_from_edges(n, src_h, dst_h, xd, vals_h)
+        torch.cuda.synchronize()
+        runs.append((D, xd, got, time.perf_counter() - t))
+    out["launches"] = {**sr.LAUNCHES, **csr_spmm.LAUNCHES}  # read just after the main path
+    if out["launches"]["block_spmm"] != 2:
+        raise AssertionError(f"gnn_full: {out['launches']} (2 block_spmm launches expected)")
+    a = torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]), coeff,
+                                (n, n)).coalesce().to_sparse_csr()
+    mask_np, tiles_np, _ = csr_spmm.tiles_from_edges(n, src_h, dst_h, vals_h)
+    mask, tiles = torch.from_numpy(mask_np).cuda(), torch.from_numpy(tiles_np).cuda()
+    cases = []
+    for D, xd, got, secs in runs:
+        res = {"D": D, "spmm_from_edges_s": secs}
+        agg = common.aggregate(xd[src.long()] * coeff[:, None], dst, n, "sum")
+        res["vs_segment_sum_max_abs_err"] = check_close(got, agg, f"gnn_full spmm D={D} vs segsum",
+                                                     1e-5, 1e-4)
+        res["max_abs_err"] = check_close(csr_spmm.block_spmm(mask, tiles, xd),
+                                      csr_spmm.block_spmm_plain(mask, tiles, xd),
+                                      f"gnn_full block_spmm D={D}", 1e-5, 1e-4)
+        res["bound_ms"], res["bound_by"], res["live_tiles"] = spmm_bound(
+            mask_np, csr_spmm.ROW_TILE, csr_spmm.COL_TILE, n, D)
+        res["tiles"] = int(mask_np.size)
+        res["ms"] = time_ms(lambda: csr_spmm.block_spmm(mask, tiles, xd))
+        res["plain_ms"] = time_ms(lambda: csr_spmm.block_spmm_plain(mask, tiles, xd))
+        res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, xd))
+        cases.append(res)
+    out["spmm"] = cases
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1169,6 +1557,13 @@ def main() -> int:
     cstream_launches = phase_compressed_stream(plain_stream)
     del plain_stream
     cscale_launches, ccases = phase_compressed_scale(plain_raises)
+    gc.collect()  # the compressed scale pools leave the card here
+    torch.cuda.empty_cache()
+    phase_gnn_kernels()
+    sampled = phase_gnn_sampled()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = phase_gnn_full()
 
     summary = []
     for name in ("segment_sum", "segment_sum_weighted"):
@@ -1224,6 +1619,34 @@ def main() -> int:
             "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
         })
+    row = sampled["fanout_row"]
+    summary.append({
+        "name": "fanout_aggregate",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fanout.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:522",
+        "launches": sampled["launches"]["fanout_aggregate"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    })
+    c = next(c for c in full["spmm"] if c["D"] == 1433)
+    summary.append({
+        "name": "block_spmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_spmm.cu",
+        "replaces": "src/repro/kernels/csr_spmm.py:47",
+        "launches": full["launches"]["block_spmm"],
+        "max_abs_err": c["max_abs_err"],
+        "ms": c["ms"],
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": c["library_ms"],
+    })
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,65 @@
+"""Architecture registry, the GNN part: ``GNNConfig``, ``GNN_SHAPES``,
+``ArchSpec`` and ``get`` over the archs the port has.
+
+Counterpart of ``repro/configs/registry.py:26-41``, ``:56-79`` and
+``:111-115``.  Each config module defines FULL (the assigned numbers),
+REDUCED (smoke scale) and the shape set of its family.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict, Tuple
+
+GNN_SHAPES: Dict[str, Dict[str, Any]] = {
+    "full_graph_sm": {
+        "n_nodes": 2708, "n_edges": 10556, "d_feat": 1433, "kind": "full",
+    },
+    "minibatch_lg": {
+        "n_nodes": 232_965, "n_edges": 114_615_892, "batch_nodes": 1024,
+        "fanout": (15, 10), "d_feat": 602, "kind": "sampled",
+    },
+    "ogb_products": {
+        "n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100, "kind": "full_large",
+    },
+    "molecule": {
+        "n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16, "kind": "batched_small",
+    },
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str  # gnn (the port's only family so far)
+    full: Any  # family config object (exact assigned numbers)
+    reduced: Any  # smoke-scale config
+    shapes: Dict[str, Dict[str, Any]]
+    notes: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    """The reference's GNN config without the SchNet and GraphCast
+    fields (``n_rbf``, ``cutoff``, ``mesh_refinement``, ``n_vars``): they
+    come with those models."""
+
+    name: str
+    kind: str  # gcn | graphsage
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "mean"
+    sample_sizes: Tuple[int, ...] = ()
+    n_classes: int = 64
+
+
+ARCH_IDS = ["graphsage-reddit", "gcn-cora"]
+
+_MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+def get(arch_id: str) -> ArchSpec:
+    if arch_id not in _MODULE_OF:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
+    return mod.SPEC

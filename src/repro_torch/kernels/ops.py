@@ -1,7 +1,8 @@
 """Public wrappers the engine calls (never the kernel modules directly).
 
 Counterpart of ``repro/kernels/ops.py:57-142`` (delta decode),
-``:177-235`` and ``:299-378`` (segment sums).  The reference pads the
+``:177-235`` and ``:299-378`` (segment sums), ``:381-387`` (fanout) and
+``:408-444`` (block SpMM).  The reference pads the
 edge axis to whole edge blocks with an out-of-range dst (chunked: whole
 chunk rows with an out-of-range anchor) and adds one
 extra destination block to swallow the padding.  The Hopper kernels take
@@ -11,8 +12,11 @@ padding.  The reference also gathers an adaptive stream's compacted hi
 plane into an aligned (R, CHUNK) transient (``_gather_hi``); the Hopper
 kernels read the compacted plane through an O(R) row index instead.
 The decode wrappers need no padding either: the padded decode kernel
-takes any row count and length, the chunked ones any row count.  Launch
-shapes are fixed (no autotuner consult yet).
+takes any row count and length, the chunked ones any row count.  Nor do
+the GNN wrappers: the reference pads the fanout batch to a multiple of 8
+and x to whole SpMM tiles, where the Hopper kernels take any B and read
+rows of x past its end as zero.  Launch shapes are fixed (no autotuner
+consult yet).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 from .._device import resolve
 from ..core.chunks import PackedDeltas
-from . import delta_decode, segment_reduce
+from . import csr_spmm, delta_decode, segment_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -175,3 +179,39 @@ def segment_sum_weighted_chunked(
 def _chunk_args(anchors, deltas, ovf_pos, ovf_add):
     return (anchors.to(torch.int32).contiguous(), deltas.contiguous(),
             ovf_pos.to(torch.int32).contiguous(), ovf_add.to(torch.int32).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# fixed-fanout aggregation (GraphSAGE minibatch)
+# ---------------------------------------------------------------------------
+
+
+def fanout_aggregate(feats: torch.Tensor, mask: torch.Tensor, op: str = "mean") -> torch.Tensor:
+    """Masked mean / sum / max over the K sampled neighbours: (B, K, D)
+    features and a (B, K) mask of any type (cast to float32) -> (B, D)."""
+    return segment_reduce.fanout_aggregate(
+        feats.to(torch.float32).contiguous(), mask.to(torch.float32).contiguous(), op)
+
+
+# ---------------------------------------------------------------------------
+# block SpMM
+# ---------------------------------------------------------------------------
+
+
+def spmm(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Block-dense ``A @ x`` over unmasked tiles: float32 (nr * R, D)."""
+    return csr_spmm.block_spmm(tile_mask.to(torch.int32).contiguous(),
+                               a_tiles.to(torch.float32).contiguous(),
+                               x.to(torch.float32).contiguous())
+
+
+def spmm_from_edges(n: int, src, dst, x: torch.Tensor, vals=None) -> torch.Tensor:
+    """``A @ x`` with ``A[dst, src] += vals`` (unit values by default) for
+    an edge list given as host arrays: tiles built on the host
+    (``csr_spmm.tiles_from_edges``), moved to x's device, then ``spmm``;
+    returns float32 (n, D).  The reference consults its autotuner for
+    the tile sizes; until the port has one (ROADMAP item 13) they are
+    fixed at ``ROW_TILE = COL_TILE = 128``."""
+    mask, tiles, _ = csr_spmm.tiles_from_edges(n, src, dst, vals)
+    out = spmm(torch.from_numpy(mask).to(x.device), torch.from_numpy(tiles).to(x.device), x)
+    return out[:n]

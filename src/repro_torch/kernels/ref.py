@@ -1,9 +1,10 @@
 """Oracles for the port's kernels (the correctness contracts).
 
-Counterpart of ``repro/kernels/ref.py:13-41``.  Each oracle computes the
-kernel's function the most direct way — a float64 scatter-add, no
-sortedness assumed; a decode as anchor + cumsum plus one step per escape
-— so tests can hold both the kernel and its plain version against it.
+Counterpart of ``repro/kernels/ref.py:13-51`` and ``:67-71``.  Each oracle
+computes the kernel's function the most direct way — a float64
+scatter-add, no sortedness assumed; a decode as anchor + cumsum plus one
+step per escape; a float64 masked reduce; a dense float64 product — so
+tests can hold both the kernel and its plain version against it.
 """
 from __future__ import annotations
 
@@ -46,3 +47,26 @@ def delta_decode_chunked_ref(
     step = cols[None, :, None] >= ovf_pos.long()[:, None, :]
     corr = torch.where(step, ovf_add.long()[:, None, :], 0).sum(-1)
     return (base + corr).to(torch.int32)
+
+
+def fanout_aggregate_ref(feats: torch.Tensor, mask: torch.Tensor, op: str = "mean") -> torch.Tensor:
+    """Masked reduce over axis 1 of (B, K, D) with ``m`` the mask as a
+    number: sum ``sum f*m``, mean ``sum f*m / max(sum m, 1)``, max over
+    ``m > 0`` with ``finfo(float32).min`` for masked entries (float64)."""
+    f = feats.double()
+    m = mask.double()[..., None]
+    if op == "sum":
+        return (f * m).sum(1)
+    if op == "mean":
+        return (f * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+    return torch.where(m > 0, f, float(torch.finfo(torch.float32).min)).amax(1)
+
+
+def block_spmm_ref(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Un-tile A and do the dense product (float64).  Like the reference's
+    oracle it reads every tile and ignores ``tile_mask``; the kernel and
+    its plain version skip masked-off tiles, so the two agree when the
+    mask is the nonzero pattern (as ``tiles_from_edges`` builds it)."""
+    nr, nc, R, C = a_tiles.shape
+    a = a_tiles.double().permute(0, 2, 1, 3).reshape(nr * R, nc * C)
+    return a @ x.double()

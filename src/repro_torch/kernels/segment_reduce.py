@@ -4,7 +4,9 @@ counters, and their plain PyTorch versions.
 Counterpart of ``repro/kernels/segment_reduce.py:53`` (``segment_sum_sorted``),
 ``:109`` (``segment_sum_weighted_sorted``) and the chunked ``:229``, ``:271``,
 ``:410`` and ``:454``.  The kernels live in ``csrc/segment_reduce.cu``; see
-its comments for the design and the bound.
+its comments for the design and the bound.  The GraphSAGE fanout reduce
+(``:522`` ``fanout_aggregate``) is at the end, its kernel in
+``csrc/fanout.cu``.
 
 Contract (raw): ``dst`` int32 (E,) ascending, ``msg`` float32 (E, D),
 ``w`` float32 (E,); returns float32 (n_out, D) with
@@ -36,6 +38,7 @@ LAUNCHES = {
     "segment_sum_weighted_chunked": 0,
     "segment_sum_chunked_adaptive": 0,
     "segment_sum_weighted_chunked_adaptive": 0,
+    "fanout_aggregate": 0,
 }
 
 
@@ -230,3 +233,53 @@ def segment_sum_weighted_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ov
         return segment_sum_weighted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, w, msg,
                                                   n_out, hi, wide)
     return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide)
+
+
+# ---------------------------------------------------------------------------
+# fixed-fanout aggregation (sampled GNN regime: GraphSAGE minibatch)
+# ---------------------------------------------------------------------------
+
+FANOUT_OPS = ("sum", "mean", "max")
+
+
+def _check_fanout(feats: torch.Tensor, mask: torch.Tensor, op: str) -> None:
+    if op not in FANOUT_OPS:
+        raise ValueError(f"op must be one of {FANOUT_OPS}, got {op!r}")
+    if feats.dtype != torch.float32 or feats.dim() != 3:
+        raise TypeError(f"feats must be float32 (B, K, D), got {feats.dtype} "
+                        f"{tuple(feats.shape)}")
+    B, K, _ = feats.shape
+    if mask.dtype != torch.float32 or tuple(mask.shape) != (B, K):
+        raise TypeError(f"mask must be float32 ({B}, {K}), got {mask.dtype} "
+                        f"{tuple(mask.shape)}")
+    if K == 0:
+        raise ValueError("fanout_aggregate needs at least one sampled neighbour (K >= 1)")
+    _build.check_operands([feats, mask])
+
+
+def fanout_aggregate_plain(feats: torch.Tensor, mask: torch.Tensor, op: str = "mean"):
+    """Plain PyTorch version: ``m`` the mask as float32; sum
+    ``sum_k f*m``, mean ``sum_k f*m / max(sum_k m, 1)``, max over
+    ``m > 0`` with ``finfo(float32).min`` for masked entries."""
+    m = mask[..., None]
+    if op == "max":
+        return torch.where(m > 0, feats, torch.finfo(torch.float32).min).amax(1)
+    s = (feats * m).sum(1)
+    if op == "sum":
+        return s
+    return s / torch.clamp(m.sum(1), min=1.0)
+
+
+def fanout_aggregate(feats: torch.Tensor, mask: torch.Tensor, op: str = "mean") -> torch.Tensor:
+    """Masked ``op`` over the K sampled neighbours: float32 (B, K, D) and
+    a float32 (B, K) mask -> float32 (B, D).  Any B (no padding)."""
+    _check_fanout(feats, mask, op)
+    if feats.device.type == "cpu":
+        return fanout_aggregate_plain(feats, mask, op)
+    B, K, D = feats.shape
+    out = torch.empty((B, D), dtype=torch.float32, device=feats.device)
+    args = [feats, mask, out, ctypes.c_longlong(B), ctypes.c_int(K), ctypes.c_int(D),
+            ctypes.c_int(FANOUT_OPS.index(op))]
+    _build.launch("fanout", "repro_fanout_aggregate", args, feats.device)
+    LAUNCHES["fanout_aggregate"] += 1
+    return out
