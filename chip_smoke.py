@@ -78,6 +78,30 @@ checks every result.  One JSON object per phase goes to stdout:
           and 1433 held against GCN's segment-sum aggregation and the
           plain SpMM, timed beside CSR ``torch.sparse.mm``.
 
+  flash_kernels
+          the flash-decode kernel against its plain version in float32 and
+          bf16: the reference's test shapes, S = 1000, lengths 0, 1 and 7,
+          d = 12 and 256, an f32 query over a bf16 cache, and strided
+          (B, S_max, n_kv, d) cache slices at the FULL configs' (Q, d);
+  lm_decode_long
+          smollm-360m FULL on long_500k: B = 1, a bf16 cache of 524,288
+          positions (21.5 GB) drawn on the card at cache_len = S_max - 4
+          (a prefill of 524,288 tokens does not fit this script's time),
+          four ``decode_step``s through the kernel (32 launches each), each
+          held against the same step without it; layer 0's kernel call
+          held against its plain version and timed beside its bound, the
+          plain version and SDPA;
+  lm_decode_32k
+          the same on decode_32k at B = 32 (cut from 128, whose cache would
+          take 172 GB), ragged cache lengths in [16,384, 32,767], 3 steps;
+  lm_serve
+          ``make_prefill`` at B = 1, S = 3072 (blockwise attention) in
+          float32 against the token-by-token decode of the same prompt
+          through ``make_serve_step`` on the kernel (full width, depth cut
+          to 8 layers for time), the bf16 model's drift from float32 on
+          one step, then ``generate`` on the kernel in bf16 with all 32
+          layers for 8 left-padded prompts of 5-32 tokens, 16 new tokens.
+
 The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
 chunk) holds only graphs whose ids have community locality: on plain
 rMAT beyond 2^15 vertices some chunk needs more than 8 int16 escapes and
@@ -94,6 +118,7 @@ before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -220,7 +245,32 @@ def phase_env(smi: str) -> None:
         "device": torch.cuda.get_device_name(0),
         "build_s": time.perf_counter() - t0,
         "nvcc_s": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
+        "flash_decode_ptxas": ptxas_summary(_build.BUILD_INFO.get("flash_decode", {})),
     })
+
+
+def ptxas_summary(info: dict) -> list:
+    """[kernel, registers, spill-store bytes] per entry function, from the
+    ``-Xptxas -v`` log of a build made in this process."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in info.get("log", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"(flash_(?:split|combine)_kernel)I([ft])(?:Li(\d+)E)?", name)
+            if short:  # e.g. flash_split_kernel<bf16, Q<=3>
+                kern, t, qm = short.groups()
+                name = f"{kern}<{'f32' if t == 'f' else 'bf16'}{', Q<=' + qm if qm else ''}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), spill])
+            name, spill = None, 0
+    return rows
 
 
 def _kernel_inputs(E: int, n_out: int, D: int, gen):
@@ -1218,15 +1268,35 @@ REDDIT_DRAWS = 79_200_000
 CORA_DRAWS = 8500
 
 
-def time_uncounted(fn, reps: int = 20) -> float:
-    """``time_ms`` of a kernel called only to be timed: the GNN launch
-    counts are put back afterwards, so they keep the main path's launches."""
+def time_ms_pipelined(fn, reps: int = 20) -> float:
+    """Mean time of ``reps`` calls of ``fn`` issued back to back between
+    two CUDA events, after one warm-up: the host's launch overhead
+    overlaps the card's work, as it does inside a decode step."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_uncounted(fn, timer=None) -> float:
+    """``time_ms`` (or ``timer``) of a kernel called only to be timed: the
+    GNN and flash launch counts are put back afterwards, so they keep the
+    main path's launches."""
     from repro_torch.kernels import csr_spmm
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import segment_reduce as sr
 
-    saved = [(d, dict(d)) for d in (sr.LAUNCHES, csr_spmm.LAUNCHES)]
+    saved = [(d, dict(d)) for d in (sr.LAUNCHES, csr_spmm.LAUNCHES, fd.LAUNCHES)]
     try:
-        return time_ms(fn, reps)
+        return (timer or time_ms)(fn)
     finally:
         for d, s in saved:
             d.update(s)
@@ -1525,6 +1595,374 @@ def phase_gnn_full() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM phases: dense decode on the flash-decode kernel (smollm-360m FULL)
+# ---------------------------------------------------------------------------
+
+# Flash decode against its plain version: float32 rtol 2e-5, atol 2e-5 *
+# max|out| (split sums against cuBLAS float32 products, in another
+# order); bf16 rtol 1e-2, atol 1e-2 * max|out| (both round a float32
+# result to bf16: one bf16 ulp is 2^-8 relative).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# A bf16 decode step's logits through the kernel against the same step
+# without it.  The non-flash path rounds its scores and softmax weights to
+# bf16 before the PV product (repro/models/layers.py:258-263) where the
+# kernel keeps float32; scores near 30 carry a bf16 step of 0.125, so the
+# two attention outputs already differ by a few percent, and every later
+# layer rounds its own products to bf16.  Over 32 layers of random
+# weights the logits drift apart as far as the bf16 model drifts from its
+# float32 version (lm_serve's bf16_drift measures that on one step of its
+# 8-layer check model), so this only tells a working path from a broken
+# one: rtol 0.25, atol 0.25 * max|logits|.  The kernel itself is held to
+# one bf16 rounding (FLASH_TOL) on layer 0 of the same step, and the
+# whole decode path to rtol 1e-4 in float32 in lm_serve.
+LM_BF16_RTOL = 0.25
+# make_prefill's float32 last-position logits against the token-by-token
+# float32 decode of the same prompt: two float32 orders of summation over
+# the layers (blockwise prefill attention against the kernel's splits).
+PREFILL_RTOL = 1e-4
+SERVE_CHECK_LAYERS = 8
+
+
+def flash_tol(want) -> dict:
+    import torch
+
+    r = FLASH_TOL["float32" if want.dtype == torch.float32 else "bfloat16"]
+    return {"rtol": r, "atol": r * max(float(want.float().abs().max()), 1e-30)}
+
+
+def flash_bound(keys: int, rows: int, Q: int, d: int, kv_bytes: int, q_bytes: int):
+    """Least time (ms) of one flash decode over ``keys`` valid cache rows
+    (summed over the rows): those K and V rows, q, the lengths and the
+    output once over HBM; a multiply-add for the score and one for the
+    output per cached element (4 Q d flops per key) over the f32 peak."""
+    nbytes = 2 * keys * d * kv_bytes + 2 * rows * Q * d * q_bytes + 4 * rows
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * keys * Q * d / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_kernels() -> None:
+    """The flash-decode kernel against its plain version, in float32 and
+    bf16: the reference's test shapes, S = 1000, lengths 0, 1 and 7 beside
+    random lengths in [S/2, S], d = 12, an f32 query over a bf16 cache,
+    and strided (B, S_max, n_kv, d) cache slices at the three FULL
+    configs' (Q, d)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_decode as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rows = []
+    for BH, Q, S, d in [(4, 8, 1024, 64), (2, 4, 2048, 128), (1, 8, 640, 64), (4, 3, 1000, 64),
+                        (4, 8, 2048, 64), (5, 1, 100, 12), (3, 16, 777, 256)]:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                       for shape in ((BH, Q, d), (BH, S, d), (BH, S, d)))
+            lens = torch.randint(S // 2, S + 1, (BH,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            if BH >= 4:
+                lens[:3] = torch.tensor([0, 1, 7], dtype=torch.int32)
+            got = fd.flash_decode(q, k, v, lens)
+            want = fd.flash_decode_plain(q, k, v, lens)
+            err = check_close(got, want, f"flash_decode {(BH, Q, S, d)} {dt}", **flash_tol(want))
+            if BH >= 4 and bool(got[0].any()):
+                raise AssertionError(f"flash_decode {(BH, Q, S, d)}: a length-0 row is not 0")
+            rows.append({"shape": [BH, Q, S, d], "dtype": str(dt)[6:], "max_abs_err": err})
+    q = torch.randn((4, 3, 64), generator=gen, device="cuda")
+    k, v = (torch.randn((4, 999, 64), generator=gen, device="cuda").bfloat16() for _ in "kv")
+    lens = torch.tensor([999, 500, 3, 0], dtype=torch.int32, device="cuda")
+    want = fd.flash_decode_plain(q, k, v, lens)
+    rows.append({"shape": [4, 3, 999, 64], "dtype": "float32 q, bfloat16 cache",
+                 "max_abs_err": check_close(fd.flash_decode(q, k, v, lens), want,
+                                            "flash_decode f32 q bf16 cache", **flash_tol(want))})
+    for arch in ("smollm-360m", "qwen2.5-3b", "starcoder2-7b"):
+        cfg = registry.get(arch).full
+        Q, d, n_kv = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.n_kv_heads
+        for dt in (torch.float32, torch.bfloat16):
+            B, S_max = 3, 4096
+            cache = torch.randn((2, 2, B, S_max, n_kv, d), generator=gen, device="cuda").to(dt)
+            q = torch.randn((B, n_kv, Q, d), generator=gen, device="cuda").to(dt)
+            lens = torch.randint(S_max // 2, S_max + 1, (B,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            kc, vc = cache[0, 1], cache[1, 1]  # layer slices, read where they lie
+            want = fd.flash_decode_cache_plain(q, kc, vc, lens)
+            err = check_close(fd.flash_decode_cache(q, kc, vc, lens), want,
+                              f"flash_decode_cache {arch} {dt}", **flash_tol(want))
+            rows.append({"cache": [B, S_max, n_kv, d], "Q": Q, "arch": arch,
+                         "dtype": str(dt)[6:], "max_abs_err": err})
+            del cache
+    emit({"phase": "flash_kernels",
+          "tolerance": {k: f"rtol {v}, atol {v}*max|out|" for k, v in FLASH_TOL.items()},
+          "cases": rows})
+
+
+def _layer0_query(params, cfg, cache, token):
+    """The q (B, n_kv, Q, d) that layer 0 hands the kernel for ``token``
+    at the cache's current lengths."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    lp = T._layer(params["layers"], 0)
+    x = T._norm(cfg, lp["ln1"], L.embed(params["embed"], token[:, None]))
+    q, _, _ = L._qkv(lp["attn"], cfg.attn_config, x, cache["len"][:, None])
+    B = token.shape[0]
+    return q.reshape(B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+
+
+def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
+    """Decode ``tokens`` (steps, B) on the kernel: the main path, with the
+    counts set to 0 before it and read after.  After each step the same
+    step without the kernel runs from the same cache state (the slots the
+    step wrote are saved, restored for the plain step, and put back), and
+    the logits are held against each other at the bf16 tolerance; layer
+    0's kernel call is held against its plain version."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import transformer as T
+
+    B = tokens.shape[1]
+    rows = torch.arange(B, device="cuda")
+    out = {"steps": [], "launches_per_step": []}
+    fd.reset_launches()
+    for step, tok in enumerate(tokens):
+        res = {"step": step, "cache_len": cache["len"].tolist() if B <= 4 else None}
+        slot = torch.clamp(cache["len"].long(), max=cache["k"].shape[2] - 1)
+        pre = (cache["k"][:, rows, slot].clone(), cache["v"][:, rows, slot].clone())
+        before = fd.LAUNCHES["flash_decode"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, new = T.decode_step(params, cfg, cache, tok, use_flash_kernel=True)
+        torch.cuda.synchronize()
+        res["step_ms"] = 1e3 * (time.perf_counter() - t)
+        launches = fd.LAUNCHES["flash_decode"] - before
+        if launches != cfg.n_layers:
+            raise AssertionError(f"{name} step {step}: {launches} flash launches, "
+                                 f"not {cfg.n_layers}")
+        out["launches_per_step"].append(launches)
+        if tuple(logits.shape) != (B, cfg.vocab) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{name} step {step}: logits {tuple(logits.shape)} not finite")
+        post = (cache["k"][:, rows, slot].clone(), cache["v"][:, rows, slot].clone())
+        cache["k"][:, rows, slot], cache["v"][:, rows, slot] = pre
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain, _ = T.decode_step(params, cfg, cache, tok, use_flash_kernel=False)
+        torch.cuda.synchronize()
+        res["plain_step_ms"] = 1e3 * (time.perf_counter() - t)
+        cache["k"][:, rows, slot], cache["v"][:, rows, slot] = post
+        res["logits_vs_plain_max_abs_err"] = check_close(
+            logits, plain, f"{name} step {step} logits", LM_BF16_RTOL,
+            LM_BF16_RTOL * float(plain.abs().max()))
+        res["logits_vs_plain_rel_l2"] = float(((logits - plain).norm(dim=-1)
+                                               / plain.norm(dim=-1)).max())
+        res["greedy_agree"] = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+        cache = new
+        out["steps"].append(res)
+    out["launches"] = dict(fd.LAUNCHES)  # read just after the main path
+    q0 = _layer0_query(params, cfg, {"len": cache["len"] - 1}, tokens[-1])
+    lens = cache["len"]  # the last step's lengths, its own token included
+    kc, vc = cache["k"][0], cache["v"][0]
+    want = fd.flash_decode_cache_plain(q0, kc, vc, lens)
+    got = fd.flash_decode_cache(q0, kc, vc, lens)  # a comparison, after the count was read
+    keys = int(torch.clamp(lens, max=kc.shape[1]).sum()) * cfg.n_kv_heads
+    bound_ms, bound_by = flash_bound(keys, B * cfg.n_kv_heads, q0.shape[2], cfg.head_dim,
+                                     kc.element_size(), q0.element_size())
+    sdpa_q = q0.reshape(B, cfg.n_heads, 1, cfg.head_dim)
+    out["kernel"] = {
+        "shape": {"B": B, "n_kv": cfg.n_kv_heads, "Q": q0.shape[2], "d": cfg.head_dim,
+                  "S_max": kc.shape[1], "valid_keys": keys},
+        "max_abs_err": check_close(got, want, f"{name} layer 0 kernel", **flash_tol(want)),
+        "ms": time_uncounted(lambda: fd.flash_decode_cache(q0, kc, vc, lens)),
+        "pipelined_ms": time_uncounted(lambda: fd.flash_decode_cache(q0, kc, vc, lens),
+                                       time_ms_pipelined),
+        "plain_ms": time_ms(lambda: fd.flash_decode_cache_plain(q0, kc, vc, lens)),
+        # yardstick only: SDPA over every position (no length mask), the
+        # cache as a transposed view
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            sdpa_q, kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plan": list(fd._plan(B * cfg.n_kv_heads, kc.shape[1], q0.shape[2], cfg.head_dim,
+                              int(kc.dtype == torch.bfloat16), kc.device)),
+    }
+    return out
+
+
+def lm_decode_phase(phase: str, shape_name: str, B: int, n_steps: int, seed: int,
+                    start_lens) -> dict:
+    """smollm-360m FULL, bf16 weights and a bf16 cache of the shape's
+    length drawn on the card as a stand-in for a prefilled history, at
+    ``start_lens(S_max, gen)``, then ``n_steps`` checked decode steps
+    (``lm_decode_steps``)."""
+    import torch
+
+    from repro_torch.configs import smollm_360m
+    from repro_torch.configs.registry import LM_SHAPES
+    from repro_torch.models import transformer as T
+
+    cfg, shape = smollm_360m.FULL, LM_SHAPES[shape_name]
+    S_max = shape["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(gen, cfg, dtype=torch.bfloat16, device="cuda")
+    cache = T.init_kv_cache(cfg, B, S_max, dtype=torch.bfloat16, device="cuda")
+    for i in range(cfg.n_layers):
+        cache["k"][i].normal_(generator=gen)
+        cache["v"][i].normal_(generator=gen)
+    cache["len"] = start_lens(S_max, gen)
+    tokens = torch.randint(0, cfg.vocab, (n_steps, B), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    out = {"phase": phase, "config": cfg.name, "shape": shape_name, "B": B,
+           "global_batch": shape["global_batch"], "S_max": S_max, "dtype": "bfloat16",
+           "start_len_min_max": [int(cache["len"].min()), int(cache["len"].max())],
+           "cache_bytes": 2 * cache["k"].numel() * cache["k"].element_size(),
+           "setup_s": time.perf_counter() - t0}
+    out.update(lm_decode_steps(phase, params, cfg, cache, tokens))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
+def phase_lm_decode_long() -> dict:
+    """smollm-360m FULL on long_500k: B = 1, S_max = 524,288, a 21.5 GB
+    bf16 cache at cache_len = S_max - 4 (prefilling 524,288 tokens is not
+    feasible in this script's time), then four decode steps through the
+    kernel that fill the last four slots."""
+    import torch
+
+    return lm_decode_phase("lm_decode_long", "long_500k", 1, 4, SEED + 18,
+                           lambda S, gen: torch.full((1,), S - 4, dtype=torch.int32,
+                                                     device="cuda"))
+
+
+def phase_lm_decode_32k() -> dict:
+    """smollm-360m FULL on decode_32k at B = 32, cut from its global batch
+    of 128 (the bf16 cache would take 172 GB; at 32 it is 42.9 GB):
+    ragged cache lengths drawn in [16,384, 32,767], three decode steps."""
+    import torch
+
+    return lm_decode_phase("lm_decode_32k", "decode_32k", 32, 3, SEED + 19,
+                           lambda S, gen: torch.randint(S // 2, S, (32,), generator=gen,
+                                                        device="cuda", dtype=torch.int32))
+
+
+def bf16_drift(params, cfg, cache, token) -> dict:
+    """How far one decode step of the bf16 model lies from its float32
+    version, through the kernel and without it: the same weights and
+    cache rounded to bf16 (norm scales stay float32, as ``init_params``
+    keeps them), max|difference| / max|float32 logits|.  Measured, not
+    checked; the reason for LM_BF16_RTOL.  Its launches are not counted."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import transformer as T
+
+    def bf16(tree, norm=False):
+        if isinstance(tree, dict):
+            return {k: bf16(v, norm or k.startswith("ln")) for k, v in tree.items()}
+        return tree if norm else tree.bfloat16()
+
+    def step(p, dtype, flash):
+        c = {"k": cache["k"].to(dtype, copy=True), "v": cache["v"].to(dtype, copy=True),
+             "len": cache["len"].clone()}
+        return T.decode_step(p, cfg, c, token, use_flash_kernel=flash)[0]
+
+    saved = dict(fd.LAUNCHES)
+    p16 = bf16(params)
+    f32 = step(params, torch.float32, True)
+    flash, plain = step(p16, torch.bfloat16, True), step(p16, torch.bfloat16, False)
+    fd.LAUNCHES.update(saved)
+    scale = float(f32.abs().max())
+    return {"flash_vs_f32": float((flash - f32).abs().max()) / scale,
+            "plain_vs_f32": float((plain - f32).abs().max()) / scale,
+            "flash_vs_plain": float((flash - plain).abs().max()) / scale,
+            "max_abs_f32_logit": scale}
+
+
+def phase_lm_serve() -> dict:
+    """The serving entry points at smollm-360m's full width: ``make_prefill``
+    at B = 1, S = 3072 (the blockwise ``chunked`` path) in float32, held
+    against the token-by-token decode of the same prompt through
+    ``make_serve_step`` on the kernel with a float32 cache (rtol 1e-4),
+    with the depth cut to SERVE_CHECK_LAYERS; then ``generate`` on the
+    kernel in bf16 with all 32 layers on 8 prompts of 5-32 tokens,
+    left-padded as ``batched_request_server`` pads them, 16 new tokens."""
+    import torch
+
+    from repro_torch.configs import smollm_360m
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode as serve
+
+    cfg = smollm_360m.FULL
+    # the 3072-step check at smollm's width and 8 of its 32 layers: an
+    # eager step costs 1-2 ms of host time per layer, and with all 32
+    # layers the check took 172 s of this script's 1200 s
+    check = dataclasses.replace(cfg, n_layers=SERVE_CHECK_LAYERS)
+    out = {"phase": "lm_serve", "config": cfg.name, "check_layers": check.n_layers}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    params = T.init_params(gen, check, dtype=torch.float32, device="cuda")
+    S = 3072
+    prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = serve.make_prefill(check)(params, prompt)
+    torch.cuda.synchronize()
+    out["prefill"] = {"B": 1, "S": S, "dtype": "float32", "s": time.perf_counter() - t}
+    step = serve.make_serve_step(check, use_flash_kernel=True)
+    # one slot more than the prompt, for the drift step below
+    cache = T.init_kv_cache(check, 1, S + 1, dtype=torch.float32, device="cuda")
+    fd.reset_launches()
+    t = time.perf_counter()
+    for s in range(S):
+        logits, cache = step(params, cache, prompt[:, s])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    out["token_by_token"] = {"steps": S, "s": dt, "ms_per_step": 1e3 * dt / S,
+                             "launches": dict(fd.LAUNCHES)}
+    launches = fd.LAUNCHES["flash_decode"]
+    if launches != S * check.n_layers:
+        raise AssertionError(f"lm_serve: {launches} flash launches, not {S * check.n_layers}")
+    out["prefill"]["vs_decode_max_abs_err"] = check_close(
+        logits, want, "lm_serve prefill vs decode", PREFILL_RTOL,
+        PREFILL_RTOL * float(want.abs().max()))
+    out["bf16_drift"] = bf16_drift(params, check, cache, logits.argmax(-1))
+    del params, cache, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = T.init_params(gen, cfg, dtype=torch.bfloat16, device="cuda")
+    lens = torch.randint(5, 33, (8,), generator=gen, device="cuda").tolist()
+    requests = [torch.randint(1, cfg.vocab, (n,), generator=gen, device="cuda") for n in lens]
+    prompt = serve.pad_requests(requests)
+    max_new = 16
+    fd.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = serve.generate(params, cfg, prompt, max_new, use_flash_kernel=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    n_steps = prompt.shape[1] + max_new - 1
+    gen_launches = fd.LAUNCHES["flash_decode"]
+    if gen_launches != n_steps * cfg.n_layers:
+        raise AssertionError(f"lm_serve generate: {gen_launches} flash launches, "
+                             f"not {n_steps * cfg.n_layers}")
+    S0 = prompt.shape[1]
+    new = toks[:, S0:]
+    if (tuple(toks.shape) != (8, S0 + max_new) or not torch.equal(toks[:, :S0], prompt)
+            or int(new.min()) < 0 or int(new.max()) >= cfg.vocab):
+        raise AssertionError(f"lm_serve generate: tokens {tuple(toks.shape)} out of shape "
+                             "or range")
+    out["generate"] = {"B": 8, "prompt_lens": lens, "padded_to": S0,
+                       "max_new": max_new, "dtype": "bfloat16", "s": dt,
+                       "tokens_per_s": 8 * max_new / dt, "decode_steps": n_steps,
+                       "launches": gen_launches}
+    out["launches"] = launches + gen_launches
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1536,34 +1974,58 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # float32 products in full float32 (the default, set here explicitly):
+    # the plain versions and the float32 model comparisons depend on it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    phase_env(smi)
-    phase_kernels()
-    phase_decode_kernels()
-    stream_launches, plain_stream = phase_stream()
-    host_launches = phase_host_decode(plain_stream)
-    g, aux, scale_launches = phase_scale()
-    cases = phase_scale_kernels(g, aux)
-    padded = phase_scale_decode(g)
+    seconds = {}  # wall time of each phase, host clock
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return res
+
+    t_start = time.perf_counter()
+    run("env", phase_env, smi)
+    run("kernels", phase_kernels)
+    run("decode_kernels", phase_decode_kernels)
+    stream_launches, plain_stream = run("stream", phase_stream)
+    host_launches = run("host_decode", phase_host_decode, plain_stream)
+    g, aux, scale_launches = run("scale", phase_scale)
+    cases = run("scale_kernels", phase_scale_kernels, g, aux)
+    padded = run("scale_decode", phase_scale_decode, g)
     plain_raises = plain_scale_graph_raises(g)
     del g, aux  # the 2^22 flat scale graph leaves the card here
     gc.collect()
     torch.cuda.empty_cache()
-    phase_compressed_kernels()
-    cstream_launches = phase_compressed_stream(plain_stream)
+    run("compressed_kernels", phase_compressed_kernels)
+    cstream_launches = run("compressed_stream", phase_compressed_stream, plain_stream)
     del plain_stream
-    cscale_launches, ccases = phase_compressed_scale(plain_raises)
+    cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
     torch.cuda.empty_cache()
-    phase_gnn_kernels()
-    sampled = phase_gnn_sampled()
+    run("gnn_kernels", phase_gnn_kernels)
+    sampled = run("gnn_sampled", phase_gnn_sampled)
     gc.collect()
     torch.cuda.empty_cache()
-    full = phase_gnn_full()
+    full = run("gnn_full", phase_gnn_full)
+    gc.collect()  # the GNN graphs and features leave the card here
+    torch.cuda.empty_cache()
+    run("flash_kernels", phase_flash_kernels)
+    long = run("lm_decode_long", phase_lm_decode_long)
+    gc.collect()  # the 21.5 GB long_500k cache leaves the card here
+    torch.cuda.empty_cache()
+    d32k = run("lm_decode_32k", phase_lm_decode_32k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_serve = run("lm_serve", phase_lm_serve)
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
 
     summary = []
     for name in ("segment_sum", "segment_sum_weighted"):
@@ -1646,6 +2108,21 @@ def main() -> int:
         "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"],
         "library_ms": c["library_ms"],
+    })
+    k = long["kernel"]
+    summary.append({
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:73",
+        "launches": (long["launches"]["flash_decode"] + d32k["launches"]["flash_decode"]
+                     + lm_serve["launches"]),
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"],
     })
     print(smi, flush=True)
     emit({"kernels": summary})

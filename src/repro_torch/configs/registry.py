@@ -1,15 +1,24 @@
-"""Architecture registry, the GNN part: ``GNNConfig``, ``GNN_SHAPES``,
-``ArchSpec`` and ``get`` over the archs the port has.
+"""Architecture registry, the dense-LM and GNN parts: ``LM_SHAPES``,
+``GNNConfig``, ``GNN_SHAPES``, ``ArchSpec`` and ``get`` over the archs
+the port has.
 
-Counterpart of ``repro/configs/registry.py:26-41``, ``:56-79`` and
+Counterpart of ``repro/configs/registry.py:19-41``, ``:56-79`` and
 ``:111-115``.  Each config module defines FULL (the assigned numbers),
-REDUCED (smoke scale) and the shape set of its family.
+REDUCED (smoke scale) and the shape set of its family.  The LM configs
+are ``models.transformer.LMConfig``s.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any, Dict, Tuple
+
+LM_SHAPES: Dict[str, Dict[str, int]] = {
+    "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768, "global_batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq_len": 32768, "global_batch": 128, "kind": "decode"},
+    "long_500k": {"seq_len": 524288, "global_batch": 1, "kind": "decode"},
+}
 
 GNN_SHAPES: Dict[str, Dict[str, Any]] = {
     "full_graph_sm": {
@@ -31,7 +40,7 @@ GNN_SHAPES: Dict[str, Dict[str, Any]] = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # gnn (the port's only family so far)
+    family: str  # lm | gnn (the port's families so far)
     full: Any  # family config object (exact assigned numbers)
     reduced: Any  # smoke-scale config
     shapes: Dict[str, Dict[str, Any]]
@@ -53,7 +62,7 @@ class GNNConfig:
     n_classes: int = 64
 
 
-ARCH_IDS = ["graphsage-reddit", "gcn-cora"]
+ARCH_IDS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b", "graphsage-reddit", "gcn-cora"]
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/kernels/ops.py:57-142`` (delta decode),
 ``:177-235`` and ``:299-378`` (segment sums), ``:381-387`` (fanout) and
-``:408-444`` (block SpMM).  The reference pads the
+``:394-400`` (flash decode), ``:408-444`` (block SpMM).  The reference pads the
 edge axis to whole edge blocks with an out-of-range dst (chunked: whole
 chunk rows with an out-of-range anchor) and adds one
 extra destination block to swallow the padding.  The Hopper kernels take
@@ -15,7 +15,9 @@ The decode wrappers need no padding either: the padded decode kernel
 takes any row count and length, the chunked ones any row count.  Nor do
 the GNN wrappers: the reference pads the fanout batch to a multiple of 8
 and x to whole SpMM tiles, where the Hopper kernels take any B and read
-rows of x past its end as zero.  Launch shapes are fixed (no autotuner
+rows of x past its end as zero.  Nor does the flash decode: the
+reference pads S to whole 512-key blocks, where the Hopper kernel masks
+by length and takes any S.  Launch shapes are fixed (no autotuner
 consult yet).
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from .._device import resolve
 from ..core.chunks import PackedDeltas
-from . import csr_spmm, delta_decode, segment_reduce
+from . import csr_spmm, delta_decode, flash_decode, segment_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +193,18 @@ def fanout_aggregate(feats: torch.Tensor, mask: torch.Tensor, op: str = "mean") 
     features and a (B, K) mask of any type (cast to float32) -> (B, D)."""
     return segment_reduce.fanout_aggregate(
         feats.to(torch.float32).contiguous(), mask.to(torch.float32).contiguous(), op)
+
+
+# ---------------------------------------------------------------------------
+# attention decode
+# ---------------------------------------------------------------------------
+
+
+def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA attention: q (BH, Q, d), k and v (BH, S, d) of any
+    S, ``lengths`` (BH,) valid keys per row -> (BH, Q, d) in q's dtype."""
+    return flash_decode.flash_decode(q, k, v, lengths)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Oracles for the port's kernels (the correctness contracts).
 
-Counterpart of ``repro/kernels/ref.py:13-51`` and ``:67-71``.  Each oracle
+Counterpart of ``repro/kernels/ref.py:13-71``.  Each oracle
 computes the kernel's function the most direct way — a float64
 scatter-add, no sortedness assumed; a decode as anchor + cumsum plus one
-step per escape; a float64 masked reduce; a dense float64 product — so
-tests can hold both the kernel and its plain version against it.
+step per escape; a float64 masked reduce; a float64 masked softmax; a
+dense float64 product — so tests can hold both the kernel and its plain
+version against it.
 """
 from __future__ import annotations
 
@@ -60,6 +61,18 @@ def fanout_aggregate_ref(feats: torch.Tensor, mask: torch.Tensor, op: str = "mea
     if op == "mean":
         return (f * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
     return torch.where(m > 0, f, float(torch.finfo(torch.float32).min)).amax(1)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Masked softmax attention (float64), cast to q's dtype.  Like the
+    reference's oracle it has no guard: a row of length 0 is a softmax
+    over nothing and gives NaN, where the kernel gives 0."""
+    qf, kf, vf = q.double(), k.double(), v.double()
+    s = torch.einsum("bqd,bsd->bqs", qf, kf) / (q.shape[-1] ** 0.5)
+    pos = torch.arange(k.shape[1], device=k.device)
+    s = torch.where(pos[None, None, :] < lengths.long()[:, None, None], s, -torch.inf)
+    return torch.einsum("bqs,bsd->bqd", torch.softmax(s, dim=-1), vf).to(q.dtype)
 
 
 def block_spmm_ref(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

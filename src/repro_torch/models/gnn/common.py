@@ -9,8 +9,9 @@ arrays come straight from the Aspen flat graph pool
 GraphBatch from the new snapshot's ``keys``.
 
 Fixed shapes: edges are padded (``edge_mask`` carries validity), as in
-the reference.  ``params_from_numpy`` carries the reference's parameter
-trees across, since ``jax.random`` draws cannot be reproduced in torch.
+the reference.  ``params_from_numpy`` (from ``models/layers.py``, shared
+with the LM) carries the reference's parameter trees across, since
+``jax.random`` draws cannot be reproduced in torch.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from ..._device import resolve
 from ...core import flat_graph as fg
+from ..layers import params_from_numpy  # noqa: F401  (re-exported)
 
 
 class GraphBatch(NamedTuple):
@@ -149,15 +151,3 @@ def random_batch(gen: torch.Generator, n: int, e: int, d_feat: int, device=None)
         edge_mask=torch.ones((e,), dtype=torch.bool, device=dev),
         node_mask=torch.ones((n,), dtype=torch.bool, device=dev),
     )
-
-
-def params_from_numpy(tree: Any, device=None) -> Any:
-    """A parameter tree of numpy arrays (the reference's
-    ``jax.tree.map(np.asarray, params)``) as the same tree of tensors on
-    ``device``; dicts, lists and tuples keep their structure."""
-    dev = resolve(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, dev) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(dev)

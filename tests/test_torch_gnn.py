@@ -77,8 +77,8 @@ def test_configs_match_reference():
     for arch in treg.ARCH_IDS:
         spec, ref = treg.get(arch), jreg.get(arch)
         assert (spec.arch_id, spec.family, spec.shapes) == (ref.arch_id, ref.family, ref.shapes)
-    with pytest.raises(KeyError):
-        treg.get("smollm-360m")
+    with pytest.raises(KeyError):  # an arch the port does not have yet
+        treg.get("qwen3-moe-30b-a3b")
 
 
 @pytest.mark.parametrize("masked", [False, True])
