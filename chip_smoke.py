@@ -76,21 +76,26 @@ checks every result.  One JSON object per phase goes to stdout:
           at Cora's 2,708 vertices): ``gcn.forward`` on the flat graph
           held against the CPU, then ``ops.spmm_from_edges`` at D = 16
           and 1433 held against GCN's segment-sum aggregation and the
-          plain SpMM, timed beside CSR ``torch.sparse.mm``.
+          plain SpMM, two kernel calls held to the same bits, timed
+          beside CSR ``torch.sparse.mm``.
 
   flash_kernels
           the flash-decode kernel against its plain version in float32 and
           bf16: the reference's test shapes, S = 1000, lengths 0, 1 and 7,
           d = 12 and 256, an f32 query over a bf16 cache, and strided
-          (B, S_max, n_kv, d) cache slices at the FULL configs' (Q, d);
+          (B, S_max, n_kv, d) cache slices at the FULL configs' (Q, d),
+          each case's route (TMA or cp.async) printed, and the TMA route
+          asserted for the FULL configs' bf16 slices;
   lm_decode_long
           smollm-360m FULL on long_500k: B = 1, a bf16 cache of 524,288
           positions (21.5 GB) drawn on the card at cache_len = S_max - 4
           (a prefill of 524,288 tokens does not fit this script's time),
-          four ``decode_step``s through the kernel (32 launches each), each
-          held against the same step without it; layer 0's kernel call
-          held against its plain version and timed beside its bound, the
-          plain version and SDPA;
+          four ``decode_step``s through the kernel (32 launches each, all
+          on the TMA route), each held against the same step without it;
+          layer 0's kernel call held against its plain version and timed
+          (per call and back to back) beside its bound, the plain version
+          and SDPA, with the host cost of its tensor maps and of setting
+          ctypes argtypes on every call;
   lm_decode_32k
           the same on decode_32k at B = 32 (cut from 128, whose cache would
           take 172 GB), ragged cache lengths in [16,384, 32,767], 3 steps;
@@ -246,6 +251,7 @@ def phase_env(smi: str) -> None:
         "build_s": time.perf_counter() - t0,
         "nvcc_s": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
         "flash_decode_ptxas": ptxas_summary(_build.BUILD_INFO.get("flash_decode", {})),
+        "block_spmm_ptxas": ptxas_summary(_build.BUILD_INFO.get("block_spmm", {})),
     })
 
 
@@ -259,10 +265,10 @@ def ptxas_summary(info: dict) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(flash_(?:split|combine)_kernel)I([ft])(?:Li(\d+)E)?", name)
-            if short:  # e.g. flash_split_kernel<bf16, Q<=3>
+            short = re.search(r"(flash_(?:tma|cpasync)_kernel)I([ft])Li(\d+)E", name)
+            if short:  # e.g. flash_tma_kernel<bf16, Q<=3>
                 kern, t, qm = short.groups()
-                name = f"{kern}<{'f32' if t == 'f' else 'bf16'}{', Q<=' + qm if qm else ''}>"
+                name = f"{kern}<{'f32' if t == 'f' else 'bf16'}, Q<={qm}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -1310,14 +1316,19 @@ def fanout_bound(B: int, K: int, D: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def spmm_bound(mask_np, R: int, C: int, n_x: int, D: int):
-    """Least time (ms) of a block SpMM: 2 R C D flops per live tile over
-    the f32 peak; the live tiles, the mask, x and the output once over HBM."""
-    live = int((mask_np > 0).sum())
-    nr, nc = mask_np.shape
-    t_ops = 2 * live * R * C * D / F32_FLOP_PER_S
+def spmm_bound(mask_np, tiles_np, n_x: int, D: int):
+    """Least time (ms) of a block SpMM on these inputs: a multiply-add per
+    nonzero entry of the live tiles and output column (2 nnz D flops) over
+    the f32 peak; the live tiles, the mask, x and the output once over
+    HBM.  Returns (ms, bound_by, live tiles, nnz)."""
+    live_mask = mask_np > 0
+    live = int(live_mask.sum())
+    nnz = int(np.count_nonzero(tiles_np[live_mask]))
+    nr, nc, R, C = tiles_np.shape
+    t_ops = 2 * nnz * D / F32_FLOP_PER_S
     t_bytes = 4 * (live * R * C + nr * nc + n_x * D + nr * R * D) / HBM_BYTES_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), live
+    return (1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), live,
+            nnz)
 
 
 def fanout_mask(B: int, K: int, kind: str, gen):
@@ -1580,12 +1591,16 @@ def phase_gnn_full() -> dict:
         agg = common.aggregate(xd[src.long()] * coeff[:, None], dst, n, "sum")
         res["vs_segment_sum_max_abs_err"] = check_close(got, agg, f"gnn_full spmm D={D} vs segsum",
                                                      1e-5, 1e-4)
-        res["max_abs_err"] = check_close(csr_spmm.block_spmm(mask, tiles, xd),
-                                      csr_spmm.block_spmm_plain(mask, tiles, xd),
+        first = csr_spmm.block_spmm(mask, tiles, xd)
+        if not torch.equal(first, csr_spmm.block_spmm(mask, tiles, xd)):
+            raise AssertionError(f"gnn_full block_spmm D={D}: two calls differ in their bits")
+        res["max_abs_err"] = check_close(first, csr_spmm.block_spmm_plain(mask, tiles, xd),
                                       f"gnn_full block_spmm D={D}", 1e-5, 1e-4)
-        res["bound_ms"], res["bound_by"], res["live_tiles"] = spmm_bound(
-            mask_np, csr_spmm.ROW_TILE, csr_spmm.COL_TILE, n, D)
+        res["same_bits_twice"] = True
+        res["bound_ms"], res["bound_by"], res["live_tiles"], res["nnz"] = spmm_bound(
+            mask_np, tiles_np, n, D)
         res["tiles"] = int(mask_np.size)
+        res["workspace_bytes"] = csr_spmm.workspace_bytes(*mask_np.shape)
         res["ms"] = time_ms(lambda: csr_spmm.block_spmm(mask, tiles, xd))
         res["plain_ms"] = time_ms(lambda: csr_spmm.block_spmm_plain(mask, tiles, xd))
         res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, xd))
@@ -1641,6 +1656,19 @@ def flash_bound(keys: int, rows: int, Q: int, d: int, kv_bytes: int, q_bytes: in
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_route(fn):
+    """(fn(), the route its one flash call took: "tma" or "cpasync")."""
+    from repro_torch.kernels import flash_decode as fd
+
+    before = dict(fd.LAUNCHES)
+    out = fn()
+    routes = [r for r in ("tma", "cpasync")
+              if fd.LAUNCHES["flash_decode_" + r] > before["flash_decode_" + r]]
+    if len(routes) != 1 or fd.LAUNCHES["flash_decode"] != before["flash_decode"] + 1:
+        raise AssertionError(f"flash call: routes {routes}, launches {fd.LAUNCHES} from {before}")
+    return out, routes[0]
+
+
 def phase_flash_kernels() -> None:
     """The flash-decode kernel against its plain version, in float32 and
     bf16: the reference's test shapes, S = 1000, lengths 0, 1 and 7 beside
@@ -1663,19 +1691,21 @@ def phase_flash_kernels() -> None:
                                  dtype=torch.int32)
             if BH >= 4:
                 lens[:3] = torch.tensor([0, 1, 7], dtype=torch.int32)
-            got = fd.flash_decode(q, k, v, lens)
+            got, route = flash_route(lambda: fd.flash_decode(q, k, v, lens))
             want = fd.flash_decode_plain(q, k, v, lens)
             err = check_close(got, want, f"flash_decode {(BH, Q, S, d)} {dt}", **flash_tol(want))
             if BH >= 4 and bool(got[0].any()):
                 raise AssertionError(f"flash_decode {(BH, Q, S, d)}: a length-0 row is not 0")
-            rows.append({"shape": [BH, Q, S, d], "dtype": str(dt)[6:], "max_abs_err": err})
+            rows.append({"shape": [BH, Q, S, d], "dtype": str(dt)[6:], "route": route,
+                         "max_abs_err": err})
     q = torch.randn((4, 3, 64), generator=gen, device="cuda")
     k, v = (torch.randn((4, 999, 64), generator=gen, device="cuda").bfloat16() for _ in "kv")
     lens = torch.tensor([999, 500, 3, 0], dtype=torch.int32, device="cuda")
     want = fd.flash_decode_plain(q, k, v, lens)
-    rows.append({"shape": [4, 3, 999, 64], "dtype": "float32 q, bfloat16 cache",
-                 "max_abs_err": check_close(fd.flash_decode(q, k, v, lens), want,
-                                            "flash_decode f32 q bf16 cache", **flash_tol(want))})
+    got, route = flash_route(lambda: fd.flash_decode(q, k, v, lens))
+    rows.append({"shape": [4, 3, 999, 64], "dtype": "float32 q, bfloat16 cache", "route": route,
+                 "max_abs_err": check_close(got, want, "flash_decode f32 q bf16 cache",
+                                            **flash_tol(want))})
     for arch in ("smollm-360m", "qwen2.5-3b", "starcoder2-7b"):
         cfg = registry.get(arch).full
         Q, d, n_kv = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.n_kv_heads
@@ -1687,10 +1717,12 @@ def phase_flash_kernels() -> None:
                                  dtype=torch.int32)
             kc, vc = cache[0, 1], cache[1, 1]  # layer slices, read where they lie
             want = fd.flash_decode_cache_plain(q, kc, vc, lens)
-            err = check_close(fd.flash_decode_cache(q, kc, vc, lens), want,
-                              f"flash_decode_cache {arch} {dt}", **flash_tol(want))
+            got, route = flash_route(lambda: fd.flash_decode_cache(q, kc, vc, lens))
+            err = check_close(got, want, f"flash_decode_cache {arch} {dt}", **flash_tol(want))
+            if dt == torch.bfloat16 and route != "tma":
+                raise AssertionError(f"flash_decode_cache {arch} bf16: {route} route, not tma")
             rows.append({"cache": [B, S_max, n_kv, d], "Q": Q, "arch": arch,
-                         "dtype": str(dt)[6:], "max_abs_err": err})
+                         "dtype": str(dt)[6:], "route": route, "max_abs_err": err})
             del cache
     emit({"phase": "flash_kernels",
           "tolerance": {k: f"rtol {v}, atol {v}*max|out|" for k, v in FLASH_TOL.items()},
@@ -1719,6 +1751,7 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
     0's kernel call is held against its plain version."""
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models import transformer as T
 
@@ -1730,16 +1763,17 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
         res = {"step": step, "cache_len": cache["len"].tolist() if B <= 4 else None}
         slot = torch.clamp(cache["len"].long(), max=cache["k"].shape[2] - 1)
         pre = (cache["k"][:, rows, slot].clone(), cache["v"][:, rows, slot].clone())
-        before = fd.LAUNCHES["flash_decode"]
+        before, before_tma = fd.LAUNCHES["flash_decode"], fd.LAUNCHES["flash_decode_tma"]
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits, new = T.decode_step(params, cfg, cache, tok, use_flash_kernel=True)
         torch.cuda.synchronize()
         res["step_ms"] = 1e3 * (time.perf_counter() - t)
         launches = fd.LAUNCHES["flash_decode"] - before
-        if launches != cfg.n_layers:
-            raise AssertionError(f"{name} step {step}: {launches} flash launches, "
-                                 f"not {cfg.n_layers}")
+        tma = fd.LAUNCHES["flash_decode_tma"] - before_tma
+        if launches != cfg.n_layers or tma != launches:
+            raise AssertionError(f"{name} step {step}: {launches} flash launches, {tma} on the "
+                                 f"TMA route, not {cfg.n_layers} each")
         out["launches_per_step"].append(launches)
         if tuple(logits.shape) != (B, cfg.vocab) or not bool(logits.isfinite().all()):
             raise AssertionError(f"{name} step {step}: logits {tuple(logits.shape)} not finite")
@@ -1782,10 +1816,47 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
         "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             sdpa_q, kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "plan": list(fd._plan(B * cfg.n_kv_heads, kc.shape[1], q0.shape[2], cfg.head_dim,
-                              int(kc.dtype == torch.bfloat16), kc.device)),
+        "plan": dict(zip(("n_split", "chunk", "keys_per_tile", "stages", "smem_bytes"),
+                         fd._plan(B * cfg.n_kv_heads, kc.shape[1], q0.shape[2], cfg.head_dim,
+                                  int(kc.dtype == torch.bfloat16), 1, kc.device))),
+        "route": flash_route(lambda: fd.flash_decode_cache(q0, kc, vc, lens))[1],
     }
+    k = out["kernel"]
+    k["workspace_bytes"] = 4 * fd.workspace_floats(B * cfg.n_kv_heads, k["plan"]["n_split"],
+                                                   q0.shape[2], cfg.head_dim)
+    k["tma_map_encode_ns"] = tma_map_ns(kc, k["plan"]["keys_per_tile"])
+    # the per-call host cost of setting a C function's argtypes on every
+    # call (as the wrapper did before it kept them): pipelined, back to back
+    key = ("flash_decode", "repro_flash_decode")
+
+    def fresh_argtypes():
+        _build._fns.pop(key, None)
+        fd.flash_decode_cache(q0, kc, vc, lens)
+
+    k["pipelined_ms_argtypes_per_call"] = time_uncounted(fresh_argtypes, time_ms_pipelined)
     return out
+
+
+def tma_map_ns(kc, box_rows: int) -> float:
+    """ns per cuTensorMapEncodeTiled call for a tensor map of the cache
+    slice ``kc`` (B, S_max, n_kv, d), the mean of 1000 in C
+    (``repro_flash_tma_map_ns``); the kernel's wrapper encodes two a call."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.c_function(
+        "flash_decode", "repro_flash_tma_map_ns",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p])
+    out = (ctypes.c_double * 1)()
+    B, S, n_kv, d = kc.shape
+    rc = fn(kc.data_ptr(), int(kc.element_size() == 2), d, n_kv, S, B, kc.stride(0),
+            kc.stride(1), kc.stride(2), box_rows, 1000, out, None)
+    if rc != 0:
+        raise RuntimeError(f"repro_flash_tma_map_ns: cudaError {rc}")
+    return out[0]
 
 
 def lm_decode_phase(phase: str, shape_name: str, B: int, n_steps: int, seed: int,
@@ -1922,8 +1993,9 @@ def phase_lm_serve() -> dict:
     out["token_by_token"] = {"steps": S, "s": dt, "ms_per_step": 1e3 * dt / S,
                              "launches": dict(fd.LAUNCHES)}
     launches = fd.LAUNCHES["flash_decode"]
-    if launches != S * check.n_layers:
-        raise AssertionError(f"lm_serve: {launches} flash launches, not {S * check.n_layers}")
+    if launches != S * check.n_layers or fd.LAUNCHES["flash_decode_tma"] != launches:
+        raise AssertionError(f"lm_serve: {fd.LAUNCHES} flash launches, not {S * check.n_layers} "
+                             "on the TMA route")
     out["prefill"]["vs_decode_max_abs_err"] = check_close(
         logits, want, "lm_serve prefill vs decode", PREFILL_RTOL,
         PREFILL_RTOL * float(want.abs().max()))
@@ -1945,7 +2017,7 @@ def phase_lm_serve() -> dict:
     dt = time.perf_counter() - t
     n_steps = prompt.shape[1] + max_new - 1
     gen_launches = fd.LAUNCHES["flash_decode"]
-    if gen_launches != n_steps * cfg.n_layers:
+    if gen_launches != n_steps * cfg.n_layers or fd.LAUNCHES["flash_decode_tma"] != gen_launches:
         raise AssertionError(f"lm_serve generate: {gen_launches} flash launches, "
                              f"not {n_steps * cfg.n_layers}")
     S0 = prompt.shape[1]
@@ -2096,6 +2168,7 @@ def main() -> int:
         "library_ms": row["library_ms"],
     })
     c = next(c for c in full["spmm"] if c["D"] == 1433)
+    c16 = next(c for c in full["spmm"] if c["D"] == 16)
     summary.append({
         "name": "block_spmm",
         "route": "cuda",
@@ -2108,6 +2181,8 @@ def main() -> int:
         "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"],
         "library_ms": c["library_ms"],
+        "d16": {key: c16[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "workspace_bytes": c["workspace_bytes"],
     })
     k = long["kernel"]
     summary.append({
@@ -2123,6 +2198,11 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
+        "pipelined_ms": k["pipelined_ms"],
+        "route": k["route"],
+        "workspace_bytes": k["workspace_bytes"],
+        "decode_32k": {key: d32k["kernel"][key]
+                       for key in ("ms", "pipelined_ms", "bound_ms", "library_ms", "route")},
     })
     print(smi, flush=True)
     emit({"kernels": summary})

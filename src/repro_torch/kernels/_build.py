@@ -33,6 +33,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# (library, entry point) -> the C function, its argtypes set at its first call
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 # name -> {"seconds": float, "log": str}; filled by builds made in this process
 BUILD_INFO: dict[str, dict] = {}
 
@@ -119,16 +121,60 @@ def check_operands(tensors) -> torch.device:
     return dev
 
 
+def c_function(name: str, fn_name: str, argtypes: list, restype=ctypes.c_int):
+    """The C entry point ``fn_name`` of ``csrc/<name>.cu``, its argtypes
+    and restype set once, at its first use: every later call must pass the
+    same ctypes types (ctypes raises on another)."""
+    fn = _fns.get((name, fn_name))
+    if fn is None:
+        fn = getattr(library(name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _fns[(name, fn_name)] = fn
+    return fn
+
+
+def call(fn, fn_name: str, args: list, index: int) -> None:
+    """``fn(*args, stream)`` with the current stream of CUDA device
+    ``index``, as that device; raises on the cudaError it returns.  The
+    stream and device come from PyTorch's raw getters, which cost a
+    fraction of ``torch.cuda.current_stream``'s object."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+
+
 def launch(name: str, fn_name: str, args: list, device: torch.device) -> None:
     """Call the C entry point ``fn_name`` of ``csrc/<name>.cu`` with
     ``args`` (tensors go as pointers, ctypes scalars as typed) and the
     device's current stream; raises on the cudaError it returns."""
-    args = [ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a for a in args]
-    fn = getattr(library(name), fn_name)
-    fn.argtypes = [type(a) for a in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = fn(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+    fn = _fns.get((name, fn_name))
+    if fn is None:
+        fn = c_function(name, fn_name, [ctypes.c_void_p if torch.is_tensor(a) else type(a)
+                                        for a in args] + [ctypes.c_void_p])
+    args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    call(fn, fn_name, args, device.index if device.index is not None
+         else torch.cuda.current_device())
+
+
+# (tag, device index, stream) -> a buffer that calls on that stream reuse
+_SCRATCH: dict[tuple[str, int, int], torch.Tensor] = {}
+
+
+def scratch(tag: str, device: torch.device, nbytes: int, zeroed: bool = False) -> torch.Tensor:
+    """A uint8 buffer of at least ``nbytes`` on ``device``, kept per
+    (tag, device, current stream) and grown when a call needs more.  The
+    calls on one stream run in order, so each may use the whole buffer;
+    a ``zeroed`` buffer is zero when made, and its users leave it so."""
+    key = (tag, device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        make = torch.zeros if zeroed else torch.empty
+        buf = make(max(nbytes, 16), dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf

@@ -4,7 +4,8 @@ PyTorch version, and the host tile builder.
 
 Counterpart of ``repro/kernels/csr_spmm.py`` (``block_spmm`` at ``:47``,
 ``tiles_from_edges`` at ``:70``).  The kernel lives in
-``csrc/block_spmm.cu``; see its comments for the design and the bound.
+``csrc/block_spmm.cu``; see its comments for the design (compact each
+live tile's nonzeros, then gather them per output row) and the bound.
 
 Contract: ``tile_mask`` int32 (nr, nc), ``a_tiles`` float32
 (nr, nc, R, C) with R = C = 128, ``x`` float32 (n_x, D) with
@@ -19,6 +20,18 @@ the reference runs at ``Precision.HIGHEST``: no TF32.  The reference
 asks its autotuner for the tile sizes; until the port has one (ROADMAP
 item 13) they are fixed at ROW_TILE = COL_TILE = 128, and the wrapper
 rejects any other.
+
+Zero entries of A are left out of the kernel's sum, which runs over each
+output element's terms in ascending (tile column, column) order: the same
+bits on every call.  For finite x that matches the dense product to
+float32 rounding (a skipped term changes at most the sign of a zero).
+For non-finite x the two differ: the plain version's dense product gives
+``0 * inf = NaN`` where A holds a zero, the kernel leaves the term out.
+
+The kernel takes a workspace of ``workspace_bytes(nr, nc)`` bytes (one
+slot per tile: 129 row offsets and up to 128 * 128 (column, value)
+pairs), a buffer the wrapper keeps per stream (``_build.scratch``) and
+grows when a call needs more.
 
 The dense tile layout grows as n^2: Reddit's 232,965 vertices would need
 about 217 TB of tiles, so this path is for Cora-sized graphs (2,708
@@ -67,6 +80,24 @@ def _check(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) -> N
     _build.check_operands([tile_mask, a_tiles, x])
 
 
+# One tile's workspace slot (csrc/block_spmm.cu): 132 int32 row offsets
+# (129 used, padded to 16 bytes), then ROW_TILE * COL_TILE (int32 column,
+# float32 value) pairs.
+SLOT_BYTES = 4 * 132 + 8 * ROW_TILE * COL_TILE
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# repro_block_spmm_compact(mask, tiles, work, nr, nc, stream) and
+# repro_block_spmm_gather(mask, work, x, out, nr, nc, n_x, D, stream)
+_COMPACT = [_P, _P, _P, _I, _I, _P]
+_GATHER = [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P]
+
+
+def workspace_bytes(nr: int, nc: int) -> int:
+    """Bytes of workspace the kernel takes for nr x nc tiles: one slot
+    per tile, sized from the shapes alone."""
+    return nr * nc * SLOT_BYTES
+
+
 def block_spmm_plain(tile_mask: torch.Tensor, a_tiles: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: zero the masked-off tiles, un-tile A, pad x
@@ -85,12 +116,20 @@ def block_spmm(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) 
     _check(tile_mask, a_tiles, x)
     if x.device.type == "cpu":
         return block_spmm_plain(tile_mask, a_tiles, x)
+    if a_tiles.data_ptr() % 16:
+        raise ValueError("block_spmm: a_tiles must start on a 16-byte boundary")
     nr, nc = tile_mask.shape
     n_x, D = x.shape
+    dev = x.device.index
+    work = _build.scratch("block_spmm", x.device, workspace_bytes(nr, nc)).data_ptr()
+    # the compaction runs while the output is allocated
+    _build.call(_build.c_function("block_spmm", "repro_block_spmm_compact", _COMPACT),
+                "repro_block_spmm_compact",
+                [tile_mask.data_ptr(), a_tiles.data_ptr(), work, nr, nc], dev)
     out = torch.empty((nr * ROW_TILE, D), dtype=torch.float32, device=x.device)
-    args = [tile_mask, a_tiles, x, out, ctypes.c_int(nr), ctypes.c_int(nc),
-            ctypes.c_longlong(n_x), ctypes.c_int(D)]
-    _build.launch("block_spmm", "repro_block_spmm", args, x.device)
+    _build.call(_build.c_function("block_spmm", "repro_block_spmm_gather", _GATHER),
+                "repro_block_spmm_gather",
+                [tile_mask.data_ptr(), work, x.data_ptr(), out.data_ptr(), nr, nc, n_x, D], dev)
     LAUNCHES["block_spmm"] += 1
     return out
 

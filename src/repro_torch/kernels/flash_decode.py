@@ -22,9 +22,17 @@ padding to the reference's 512-key blocks.
 q (B, n_kv, Q, d), one layer's cache slices (B, S_max, n_kv, d) read in
 place through their strides, lengths (B,) per sequence.
 
+Routes: a cache whose row bytes (d * elem) and used strides are multiples
+of 16 bytes, with both bases 16-byte aligned and S >= 1, takes the TMA
+route (``tma_route``); any other (d = 12 in bf16 has 24-byte rows) the
+cp.async route.  Both are the hand kernel; ``LAUNCHES`` counts calls in
+all and per route.
+
 Dispatch: a tensor on the CPU gets the plain version; a CUDA tensor gets
-the kernel or an exception, never the plain version.  One call is two
-CUDA launches (the split pass and the combine) and counts once.
+the kernel or an exception, never the plain version.  One call is one CUDA
+launch: the split pass merges its own partials (the last block of each
+row), through a float32 workspace of ``workspace_floats`` and a per-row
+counter that each call leaves at zero.
 """
 from __future__ import annotations
 
@@ -39,8 +47,9 @@ MAX_D = 256
 MAX_Q = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# Calls that launched the kernel in this process (bumped only where it launches).
-LAUNCHES = {"flash_decode": 0}
+# Calls that launched the kernel in this process, in all and per route
+# (bumped only where it launches).
+LAUNCHES = {"flash_decode": 0, "flash_decode_tma": 0, "flash_decode_cpasync": 0}
 
 
 def reset_launches() -> None:
@@ -105,38 +114,78 @@ def flash_decode_cache_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: to
     return o.reshape(B, n_kv, Q, d)
 
 
+def tma_route(k: torch.Tensor, v: torch.Tensor, sizes, kstrides, vstrides) -> bool:
+    """Whether the cache k, v takes the TMA route: its rows (d * elem
+    bytes) and the strides of every dimension longer than 1 (``sizes``
+    and strides in elements, for (batch, position, head)) are multiples of
+    16 bytes below 2^40, both bases are 16-byte aligned, and there is at
+    least one position.  The kernel's TMA box is the whole row; every
+    other cache takes the cp.async route."""
+    elem = k.element_size()
+    if (k.shape[-1] * elem) % 16 or k.data_ptr() % 16 or v.data_ptr() % 16 or sizes[1] < 1:
+        return False
+    for n, ks, vs in zip(sizes, kstrides, vstrides):
+        if n > 1 and ((ks * elem) % 16 or (vs * elem) % 16 or max(ks, vs) * elem >= 2**40):
+            return False
+    return True
+
+
+def workspace_floats(BH: int, n_split: int, Q: int, d: int) -> int:
+    """float32 workspace of one call: each split's partial (m, l, acc),
+    none with a single split."""
+    return 0 if n_split == 1 else BH * n_split * Q * (d + 2)
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(BH: int, S: int, Q: int, d: int, kv_bf16: int, device: torch.device):
-    """(n_split, chunk) from ``repro_flash_decode_plan`` for these shapes."""
-    out = torch.zeros(2, dtype=torch.int32)
+def _plan(BH: int, S: int, Q: int, d: int, kv_bf16: int, tma: int, device: torch.device):
+    """(n_split, chunk, keys per tile, ring stages, shared bytes) from
+    ``repro_flash_decode_plan`` for these shapes and route; sets the
+    kernel's shared-memory limit on the device."""
+    out = torch.zeros(5, dtype=torch.int32)
     _build.launch("flash_decode", "repro_flash_decode_plan",
                   [ctypes.c_int(BH), ctypes.c_int(S), ctypes.c_int(Q), ctypes.c_int(d),
-                   ctypes.c_int(kv_bf16), out], device)
-    return int(out[0]), int(out[1])
+                   ctypes.c_int(kv_bf16), ctypes.c_int(tma), out], device)
+    return tuple(int(x) for x in out)
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# repro_flash_decode(q, q_bf16, k, v, kv_bf16, lengths, out, work, counters,
+# B, n_kv, S, Q, d, 6 strides, n_split, chunk, tma, stream)
+_ARGTYPES = [_P, _I, _P, _P, _I, _P, _P, _P, _P, *[_I] * 5, *[_L] * 6, _I, _I, _I, _P]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
             B: int, n_kv: int, kstrides, vstrides) -> torch.Tensor:
-    """Both passes of the kernel; k, v element (b, t, h, j) at
-    b * strides[0] + t * strides[1] + h * strides[2] + j."""
+    """One launch of the kernel; k, v element (b, t, h, j) at
+    b * strides[0] + t * strides[1] + h * strides[2] + j.  The per-row
+    counters and the partials are buffers kept per stream
+    (``_build.scratch``): a decode step's 32 calls allocate only their
+    outputs."""
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_decode: the head dim of k and v must be contiguous")
     kv_bf16 = int(k.dtype == torch.bfloat16)
-    if kv_bf16 and (k.shape[-1] % 2 or any(s % 2 for s in (*kstrides, *vstrides))):
-        raise ValueError("flash_decode: bf16 k and v need an even head dim and even strides")
     dev = q.device
     Q, d, S = q.shape[-2], q.shape[-1], k.shape[1]
+    BH = B * n_kv
+    tma = int(tma_route(k, v, (B, S, n_kv), kstrides, vstrides))  # implies even bf16 strides
+    if (not tma and kv_bf16
+            and (k.shape[-1] % 2 or any(s % 2 for s in (*kstrides, *vstrides)))):
+        raise ValueError("flash_decode: bf16 k and v need an even head dim and even strides")
     q = q.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
-    n_split, chunk = _plan(B * n_kv, S, Q, d, kv_bf16, dev)
-    work = torch.empty(B * n_kv * n_split * Q * (d + 2), dtype=torch.float32, device=dev)
-    args = [q, ctypes.c_int(int(q.dtype == torch.bfloat16)), k, v, ctypes.c_int(kv_bf16), lens,
-            out, work, ctypes.c_int(B), ctypes.c_int(n_kv), ctypes.c_int(S), ctypes.c_int(Q),
-            ctypes.c_int(d), *(ctypes.c_longlong(s) for s in (*kstrides, *vstrides)),
-            ctypes.c_int(n_split), ctypes.c_int(chunk)]
-    _build.launch("flash_decode", "repro_flash_decode", args, dev)
+    lens = lengths
+    if lens.dtype != torch.int32 or not lens.is_contiguous():
+        lens = lens.to(torch.int32).contiguous()
+    n_split, chunk = _plan(BH, S, Q, d, kv_bf16, tma, dev)[:2]
+    counters = _build.scratch("flash_counters", dev, 4 * BH, zeroed=True)
+    work = _build.scratch("flash_partials", dev, 4 * workspace_floats(BH, n_split, Q, d))
+    out = torch.empty_like(q)
+    fn = _build.c_function("flash_decode", "repro_flash_decode", _ARGTYPES)
+    _build.call(fn, "repro_flash_decode",
+                [q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
+                 kv_bf16, lens.data_ptr(), out.data_ptr(), work.data_ptr(), counters.data_ptr(),
+                 B, n_kv, S, Q, d, *kstrides, *vstrides, n_split, chunk, tma], dev.index)
     LAUNCHES["flash_decode"] += 1
+    LAUNCHES["flash_decode_tma" if tma else "flash_decode_cpasync"] += 1
     return out
 
 

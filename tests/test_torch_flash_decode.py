@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build
+from repro_torch.kernels import csr_spmm as tsp
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -187,7 +188,71 @@ def test_flash_decode_counts_no_launch_on_the_cpu(no_kernel):
     fd.reset_launches()
     q, k, v, lengths = inputs(2, 2, 64, 16, seed=9)
     fd.flash_decode(*(torch.from_numpy(x) for x in (q, k, v, lengths)))
-    assert fd.LAUNCHES == {"flash_decode": 0}
+    fd.flash_decode_cache(*cache_inputs(2, 64, 2, 3, 16, seed=9))
+    assert fd.LAUNCHES == {"flash_decode": 0, "flash_decode_tma": 0, "flash_decode_cpasync": 0}
+
+
+def _strides(t):
+    """(batch, position, head) strides of a (B, S, n_kv, d) cache slice or
+    of a (BH, S, d) row tensor (head stride 0), as the wrapper passes them."""
+    return (t.stride(0), t.stride(1), t.stride(2) if t.dim() == 4 else 0)
+
+
+def _sizes(t):
+    return (t.shape[0], t.shape[1], t.shape[2] if t.dim() == 4 else 1)
+
+
+def _unaligned(shape, dtype):
+    """A contiguous tensor of ``shape`` whose base is one element past a
+    16-byte boundary."""
+    n = 1
+    for x in shape:
+        n *= x
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+ROUTE_CASES = {
+    # name: (k, expected TMA route)
+    "rows_f32_d64": (lambda: torch.zeros((3, 100, 64)), True),
+    "rows_bf16_d64": (lambda: torch.zeros((3, 100, 64), dtype=torch.bfloat16), True),
+    "cache_slice_bf16_d64": (lambda: torch.zeros((2, 3, 2, 300, 5, 64),
+                                                 dtype=torch.bfloat16)[0, 1], True),
+    "cache_slice_f32_d128": (lambda: torch.zeros((2, 3, 2, 64, 4, 128))[1, 2], True),
+    "bf16_d12": (lambda: torch.zeros((5, 100, 12), dtype=torch.bfloat16), False),  # 24-byte rows
+    "f32_d12": (lambda: torch.zeros((5, 100, 12)), True),  # 48-byte rows
+    "bf16_d8_row_stride_24_bytes": (
+        lambda: torch.zeros((2, 50, 12), dtype=torch.bfloat16)[..., :8], False),
+    "unaligned_base": (lambda: _unaligned((2, 50, 64), torch.bfloat16), False),
+    "one_batch_row_odd_batch_stride": (
+        lambda: torch.zeros(4000).as_strided((1, 50, 64), (3, 64, 1)), True),
+    "no_positions": (lambda: torch.zeros((2, 0, 64)), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_tma_route_rule(case):
+    """The TMA route takes a cache whose row bytes and used strides are
+    multiples of 16 bytes and whose base is 16-byte aligned; strides of
+    dimensions of size 1 do not count."""
+    make, want = ROUTE_CASES[case]
+    k = make()
+    assert fd.tma_route(k, k, _sizes(k), _strides(k), _strides(k)) is want
+    if want:  # a v that is not aligned sends the call to the cp.async route
+        v = _unaligned(tuple(k.shape), k.dtype)
+        assert fd.tma_route(k, v, _sizes(k), _strides(k), _strides(v)) is False
+
+
+def test_workspace_sizes():
+    """The flash partials take Q * (d + 2) floats per row and split, none
+    with one split (long_500k's 5 rows of 52 splits: 206 KB); the SpMM
+    workspace is one slot per tile, from the shapes alone (gcn-cora's
+    22 x 22 tiles: 63.7 MB)."""
+    assert fd.workspace_floats(5, 1, 3, 64) == 0
+    assert fd.workspace_floats(5, 52, 3, 64) == 5 * 52 * 3 * 66 == 51_480
+    assert fd.workspace_floats(160, 7, 3, 64) == 160 * 7 * 3 * 66
+    assert tsp.SLOT_BYTES == 4 * 132 + 8 * 128 * 128
+    assert tsp.workspace_bytes(22, 22) == 484 * 131_600 == 63_694_400
+    assert tsp.workspace_bytes(0, 5) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -236,3 +301,45 @@ def test_cuda_flash_decode_cache_matches_plain(cuda, n_kv, Q, d, dtype):
     torch.cuda.synchronize()
     want = fd.flash_decode_cache(q.cpu(), kc.cpu(), vc.cpu(), lengths.cpu())
     torch.testing.assert_close(got.cpu(), want, **_tol(dtype, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,route", [(64, torch.bfloat16, "tma"), (128, torch.float32, "tma"),
+                                           (12, torch.float32, "tma"),
+                                           (12, torch.bfloat16, "cpasync"),
+                                           (256, torch.float32, "tma")])
+@pytest.mark.parametrize("Q", [1, 3, 9])
+def test_cuda_flash_decode_routes_match_plain(cuda, d, dtype, route, Q):
+    """Each route against the plain version, with lengths 0, 1 and 7
+    beside long rows that take several splits; the call counts on its
+    route and leaves the row counters at zero."""
+    q, k, v, lengths = inputs(5, Q, 20_000, d, seed=d + Q)
+    lengths[:3] = [0, 1, 7]
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    lens = torch.from_numpy(lengths).to(cuda)
+    fd.reset_launches()
+    got = fd.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == fd.LAUNCHES["flash_decode_" + route] == 1
+    want = fd.flash_decode_plain(q, k, v, lens)
+    torch.testing.assert_close(got, want, **_tol(dtype, want))
+    assert bool((got[0] == 0).all())
+    assert all(int(buf.abs().sum()) == 0 for key, buf in _build._SCRATCH.items()
+               if key[0] == "flash_counters")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_cache_takes_tma_and_repeats_bits(cuda, dtype):
+    """smollm-360m's cache slice (n_kv = 5, Q = 3, d = 64) takes the TMA
+    route, and two calls give the same bits (the row's last block merges
+    the partials in split order, whichever block comes last)."""
+    q, kc, vc, lengths = cache_inputs(2, 30_000, 5, 3, 64, seed=3, dtype=dtype, device=cuda)
+    fd.reset_launches()
+    a = fd.flash_decode_cache(q, kc, vc, lengths)
+    b = fd.flash_decode_cache(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode_tma"] == 2
+    assert torch.equal(a, b)
+    want = fd.flash_decode_cache_plain(q, kc, vc, lengths)
+    torch.testing.assert_close(a, want, **_tol(dtype, want))

@@ -238,3 +238,66 @@ def test_cuda_block_spmm_matches_plain(cuda, n, E, D):
     torch.cuda.synchronize()
     assert tsp.LAUNCHES["block_spmm"] == before + 1
     torch.testing.assert_close(got, tsp.block_spmm_plain(m, a, x), rtol=1e-5, atol=1e-4)
+
+
+def test_block_spmm_plain_nonfinite_x_is_the_dense_product():
+    """The plain version is the dense product: an inf in x gives NaN in
+    every row whose tile holds that column, where A's entry is 0 (0 * inf);
+    the kernel leaves zero entries out instead (the cuda test below)."""
+    n = 256
+    mask, tiles, _ = tsp.tiles_from_edges(n, np.array([0, 5]), np.array([3, 3]))
+    x = torch.ones((n, 2))
+    x[5, 0] = float("inf")
+    got = tsp.block_spmm(_t(mask), _t(tiles), x)
+    assert torch.isinf(got[3, 0]) and bool(torch.isnan(got[:128, 0][torch.arange(128) != 3]).all())
+    assert bool(torch.isfinite(got[:, 1]).all()) and float(got[3, 1]) == 2.0
+
+
+def cora_like(D, seed):
+    """Cora's size: 2,708 vertices, 10,556 random directed edges with
+    positive weights, x of width D."""
+    rng = np.random.default_rng(seed)
+    n, E = 2708, 10556
+    src, dst = rng.integers(0, n, E), rng.integers(0, n, E)
+    mask, tiles, _ = tsp.tiles_from_edges(n, src, dst, rng.random(E).astype(np.float32))
+    return mask, tiles, rng.standard_normal((n, D)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 1433])
+def test_cuda_block_spmm_cora_same_bits_twice(cuda, D):
+    """gcn-cora's two widths against the plain version, and two calls
+    giving the same bits (a fixed order of summation, no atomics)."""
+    mask, tiles, x = cora_like(D, seed=D)
+    m, a, xd = _t(mask).to(cuda), _t(tiles).to(cuda), _t(x).to(cuda)
+    first = tsp.block_spmm(m, a, xd)
+    second = tsp.block_spmm(m, a, xd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, tsp.block_spmm_plain(m, a, xd), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_block_spmm_leaves_zero_entries_out(cuda):
+    """Non-finite x: the kernel sums the nonzero entries only, so an inf
+    reaches just the rows whose entry for it is nonzero (the plain dense
+    product gives NaN in the rest of the tile's rows)."""
+    mask, tiles, _ = tsp.tiles_from_edges(256, np.array([0, 5]), np.array([3, 3]))
+    x = torch.ones((256, 2), device=cuda)
+    x[5, 0] = float("inf")
+    got = tsp.block_spmm(_t(mask).to(cuda), _t(tiles).to(cuda), x).cpu()
+    assert torch.isinf(got[3, 0]) and float(got[3, 1]) == 2.0
+    others = torch.arange(256) != 3
+    assert not bool(got[others].any()) and bool(torch.isfinite(got[others]).all())
+
+
+@pytest.mark.cuda
+def test_cuda_block_spmm_workspace_size_agrees_with_the_kernel(cuda):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.c_function("block_spmm", "repro_block_spmm_workspace_bytes",
+                           [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
+    for nr, nc in [(1, 1), (22, 22), (3, 7)]:
+        assert fn(nr, nc) == tsp.workspace_bytes(nr, nc)
