@@ -182,6 +182,16 @@ def check_close(got, want, what: str, rtol: float = 1e-5, atol: float | None = N
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
+def same_bits(fn, what: str) -> bool:
+    """Two calls of a kernel give the same bits (its float32 sums run in
+    a fixed order); raises if they do not."""
+    import torch
+
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"{what}: two calls gave different bits")
+    return True
+
+
 def rmat_symmetric_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
     """rMAT edges (a=0.5, b=c=0.1, d=0.3, paper §7.4) drawn on the card from
     a seeded generator, then symmetrized, deduplicated and stripped of
@@ -310,8 +320,10 @@ def phase_kernels() -> None:
                  lambda: sr.segment_sum_weighted_sorted_plain(dst, w, msg, n_out)),
             ):
                 row[f"{name}_max_abs_err"] = check_close(kern(), plain(), f"{name} E={E} D={D}")
+                row[f"{name}_same_bits"] = same_bits(kern, f"{name} E={E} D={D}")
                 if E > 100_000:
                     row[f"{name}_ms"] = time_ms(kern)
+                    row[f"{name}_pipelined_ms"] = time_ms_pipelined(kern)
                     row[f"{name}_plain_ms"] = time_ms(plain)
             if E > 100_000:
                 row["index_add_ms"] = time_ms(lambda: ext.zero_().index_add_(0, idx, msg))
@@ -450,6 +462,10 @@ def stream_kernel_check(eng) -> dict:
         errs[f"segment_sum_D{D}"] = check_close(
             sr.segment_sum_sorted(dst, m, n), sr.segment_sum_sorted_plain(dst, m, n),
             f"stream segment_sum D={D}")
+        errs[f"same_bits_D{D}"] = (
+            same_bits(lambda: sr.segment_sum_sorted(dst, m, n), f"stream segment_sum D={D}")
+            and same_bits(lambda: sr.segment_sum_weighted_sorted(dst, a.w_by_dst, m, n),
+                          f"stream segment_sum_weighted D={D}"))
     return errs
 
 
@@ -530,8 +546,11 @@ def phase_scale() -> tuple:
 def phase_scale_kernels(g, aux) -> list:
     """Each kernel at the scale phase's shapes (the PageRank reduce:
     dst_sorted over the whole pool, n_out = n, D = 1 and the x8 lanes)
-    against its plain version, timed beside ``index_add_`` (unweighted)
-    and a sparse CSR product (weighted)."""
+    against its plain version, per synchronised call and back to back,
+    with two calls giving the same bits.  Yardsticks: a sparse CSR product
+    on the same row pointer (weighted), and for the unweighted kernel the
+    fastest of ``index_add_``, the CSR product with unit values and
+    ``torch.segment_reduce`` over the row offsets (``library``)."""
     import torch
 
     from repro_torch.core.traversal import torch_backend as tb
@@ -545,7 +564,9 @@ def phase_scale_kernels(g, aux) -> list:
     w = torch.rand(dst.shape, generator=gen, device="cuda")
     wv = torch.where(dst < n, w, 0.0)
     offs = aux.dst_offsets.long()
-    csr_w = torch.sparse_csr_tensor(offs, torch.arange(e_valid, device="cuda"), wv[:e_valid],
+    cols = torch.arange(e_valid, device="cuda")
+    csr_w = torch.sparse_csr_tensor(offs, cols, wv[:e_valid], size=(n, dst.shape[0]))
+    csr_1 = torch.sparse_csr_tensor(offs, cols, torch.ones(e_valid, device="cuda"),
                                     size=(n, dst.shape[0]))
     summary = []
     for D in (1, 8):
@@ -556,17 +577,26 @@ def phase_scale_kernels(g, aux) -> list:
             if weighted:
                 kern = lambda: sr.segment_sum_weighted_sorted(dst, w, msg, n)  # noqa: E731
                 plain = lambda: sr.segment_sum_weighted_sorted_plain(dst, w, msg, n)  # noqa: E731
-                lib = lambda: torch.sparse.mm(csr_w, msg)  # noqa: E731
+                libs = {"csr_sparse_mm": lambda: torch.sparse.mm(csr_w, msg)}
             else:
                 kern = lambda: sr.segment_sum_sorted(dst, msg, n)  # noqa: E731
                 plain = lambda: sr.segment_sum_sorted_plain(dst, msg, n)  # noqa: E731
-                lib = lambda: ext.zero_().index_add_(0, idx, msg)  # noqa: E731
+                libs = {"index_add_": lambda: ext.zero_().index_add_(0, idx, msg),
+                        "csr_sparse_mm_unit": lambda: torch.sparse.mm(csr_1, msg),
+                        "segment_reduce_offsets": lambda: torch.segment_reduce(
+                            msg[:e_valid], "sum", offsets=offs, axis=0)}
             err = check_close(kern(), plain(), f"scale {name} D={D}")
+            for lib_name, lib in libs.items():  # the yardsticks compute the same function
+                check_close(lib()[:n], plain(), f"scale {name} D={D} {lib_name}")
+            lib_ms = {k: time_ms(f) for k, f in libs.items()}
+            best = min(lib_ms, key=lib_ms.get)
             bound_ms, bound_by = bound(e_valid, n, D, weighted)
             summary.append({
                 "name": name, "D": D, "E": int(dst.shape[0]), "E_valid": e_valid, "n_out": n,
-                "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                "library_ms": time_ms(lib), "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err, "same_bits": same_bits(kern, f"scale {name} D={D}"),
+                "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
+                "plain_ms": time_ms(plain), "library_ms": lib_ms[best], "library": best,
+                "libraries_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             })
     emit({"phase": "scale_kernels", "cases": summary})
     return summary
@@ -870,6 +900,8 @@ def phase_compressed_kernels() -> None:
                 row[f"{name}_max_abs_err"] = check_close(
                     chunked_call(s, msg, n_out, wt), chunked_call(s, msg, n_out, wt, plain=True),
                     f"{name} {layout} R={R} D={D}")
+                row[f"{name}_same_bits"] = same_bits(lambda: chunked_call(s, msg, n_out, wt),
+                                                     f"{name} {layout} R={R} D={D}")
             rows.append(row)
     for r in rows:
         if r["R"] > 1 and r["escapes"] == 0:
@@ -1081,6 +1113,10 @@ def compressed_stream_kernel_check(eng) -> dict:
         out[f"segment_sum_chunked_adaptive_D{D}_max_abs_err"] = check_close(
             chunked_call(s, m, n), chunked_call(s, m, n, plain=True),
             f"compressed_stream segment_sum_chunked_adaptive D={D}")
+        out[f"same_bits_D{D}"] = (
+            same_bits(lambda: chunked_call(s, m, n), f"compressed_stream chunked D={D}")
+            and same_bits(lambda: chunked_call(s, m, n, a.w_by_dst),
+                          f"compressed_stream weighted chunked D={D}"))
     return out
 
 
@@ -1231,9 +1267,10 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
             cases.append({
                 "name": chunked_name(s, weighted), "layout": name, "D": D, "R": s.deltas.shape[0],
                 "E_valid": e_valid, "n_out": n, "stream_bytes": cz.stream_nbytes(s),
-                "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                "raw_kernel_ms": time_ms(raw_k), "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None,
+                "max_abs_err": err, "same_bits": same_bits(kern, f"compressed_scale {name} D={D}"),
+                "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
+                "plain_ms": time_ms(plain), "raw_kernel_ms": time_ms(raw_k),
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             })
         del dec
 
@@ -2115,6 +2152,9 @@ def main() -> int:
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
+            "library": c["library"],
+            "pipelined_ms": c["pipelined_ms"],
+            "same_bits": c["same_bits"],
         })
     replaces = dict(zip(CHUNKED_KERNELS, ("229", "271", "410", "454")))
     for name in CHUNKED_KERNELS:
@@ -2132,6 +2172,8 @@ def main() -> int:
             "bound_by": c["bound_by"],
             "library_ms": None,
             "raw_kernel_ms": c["raw_kernel_ms"],
+            "pipelined_ms": c["pipelined_ms"],
+            "same_bits": c["same_bits"],
         })
     replaces = dict(zip(DECODE_KERNELS, ("83", "162", "210")))
     for name in DECODE_KERNELS:

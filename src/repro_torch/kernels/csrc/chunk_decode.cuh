@@ -1,6 +1,6 @@
 // Warp-per-row decode of one 128-slot chunk row of a chunk-compressed
 // int32 lane (repro_torch/core/compressed.py's ChunkedStream), shared by
-// the chunked segment sums' bounds pass (segment_reduce.cu) and the
+// the chunked segment sums' key source (segment_reduce.cu) and the
 // standalone decode kernels (delta_decode.cu), so both decode by one text.
 //
 // Layout: anchor int32, int8 or int16 deltas (column 0 holds 0), up to

@@ -14,7 +14,7 @@
 // Design.
 //   * Chunked (fixed int8 / int16, and adaptive): one warp per 128-slot
 //     chunk row, decoded by chunk_decode.cuh's decode_row (the text the
-//     chunked segment sums' bounds pass runs), then each lane stores its
+//     chunked segment sums run), then each lane stores its
 //     4 consecutive ids as one 16-byte store, coalesced across the warp.
 //     The hi plane is read through the O(R) row index hi_row built by the
 //     wrapper; no (R, 128) gathered plane exists.

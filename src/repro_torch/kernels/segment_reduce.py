@@ -4,7 +4,10 @@ counters, and their plain PyTorch versions.
 Counterpart of ``repro/kernels/segment_reduce.py:53`` (``segment_sum_sorted``),
 ``:109`` (``segment_sum_weighted_sorted``) and the chunked ``:229``, ``:271``,
 ``:410`` and ``:454``.  The kernels live in ``csrc/segment_reduce.cu``; see
-its comments for the design and the bound.  The GraphSAGE fanout reduce
+its comments for the design (one edge-parallel pass over tiles of
+``TILE`` slots, then a fix-up launch for the rows that cross a tile
+edge) and the bound.  The carries between the two live in a buffer kept
+per stream (``_build.scratch``).  The GraphSAGE fanout reduce
 (``:522`` ``fanout_aggregate``) is at the end, its kernel in
 ``csrc/fanout.cu``.
 
@@ -30,7 +33,8 @@ from ..core import compressed as cz
 from . import _build, delta_decode
 
 # Launches of each kernel in this process (bumped only where the kernel
-# is launched, never by the plain versions).
+# is launched, never by the plain versions).  A segment-sum call counts
+# once: its C entry makes two CUDA launches, the pass and the fix-up.
 LAUNCHES = {
     "segment_sum": 0,
     "segment_sum_weighted": 0,
@@ -45,6 +49,18 @@ LAUNCHES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# Slots a block of the segment-sum pass takes (kTile in csrc/segment_reduce.cu).
+TILE = 4096
+
+
+def _scratch(E: int, D: int, device: torch.device) -> torch.Tensor:
+    """The carry buffer of a call over E slots: 2 int32 keys and 2 * D
+    float32 values a tile, the values from the next 16-byte bound (the
+    layout ``csrc/segment_reduce.cu``'s ``launch`` reads)."""
+    tiles = -(-E // TILE)
+    return _build.scratch("segment_sum", device, -(-8 * tiles // 16) * 16 + 8 * tiles * D)
 
 
 def _check_msg(E: int, msg: torch.Tensor, n_out: int, w: torch.Tensor | None) -> None:
@@ -86,8 +102,7 @@ def segment_sum_weighted_sorted_plain(
 def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int) -> torch.Tensor:
     E, D = msg.shape
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
-    bounds = torch.empty(n_out + 1, dtype=torch.int64, device=msg.device)  # scratch
-    args = [dst] + ([] if w is None else [w]) + [msg, out, bounds]
+    args = [dst] + ([] if w is None else [w]) + [msg, out, _scratch(E, D, msg.device)]
     args += [ctypes.c_longlong(E), ctypes.c_int(D), ctypes.c_int(n_out)]
     _build.launch("segment_reduce", fn_name, args, msg.device)
     LAUNCHES[counter] += 1
@@ -183,14 +198,14 @@ def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) 
     R, K = ovf_pos.shape
     D = msg.shape[1]
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
-    bounds = torch.empty(n_out + 1, dtype=torch.int64, device=msg.device)  # scratch
     args = [anchors, deltas]
     if adaptive:
         hi_row = delta_decode.hi_rows(wide, hi.shape[0])  # O(R); no (R, CHUNK) gathered plane
         args += [hi, wide, hi_row, ctypes.c_int(hi.shape[0])]
     else:
         args += [ctypes.c_int(deltas.element_size())]
-    args += [ovf_pos, ovf_add] + ([w] if weighted else []) + [msg, out, bounds]
+    args += [ovf_pos, ovf_add] + ([w] if weighted else [])
+    args += [msg, out, _scratch(R * cz.CHUNK, D, msg.device)]
     args += [ctypes.c_longlong(R), ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(n_out)]
     _build.launch("segment_reduce", fn_name, args, msg.device)
     LAUNCHES[counter] += 1

@@ -94,6 +94,62 @@ def _inputs(layout, kind, R, D, seed):
     return vals, n_out, ts, js, msg, w
 
 
+# Lanes at the corners of the kernels' partition (tiles of 32 chunk rows,
+# runs crossing chunk and tile edges): (values int32[R * CHUNK], n_out).
+# ``big`` sizes them to span many tiles (about 10^6 slots, a row of
+# 3 * 10^5) for the card.  Gaps stay small, so no layout spills.
+EDGE_LANES = ["chunk_edge_rows", "one_row", "hub", "empty_rows", "all_pads", "e1", "negative"]
+
+
+def edge_lane(name: str, big: bool = False, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    R = 7813 if big else 40
+    E, hub = R * CHUNK, (300_000 if big else 3_000)
+    if name == "chunk_edge_rows":  # each row fills whole chunks: rows start on chunk edges
+        rows = np.repeat(np.arange(R // 2) * 3, 2)
+        vals, n_out = np.repeat(rows, CHUNK), 3 * (R // 2) - 3 * (R // 20) - 3
+    elif name == "one_row":
+        vals, n_out = np.full(E, 5), 9
+    elif name == "hub":
+        small = np.cumsum(rng.integers(1, 3, E))
+        cut = int(small[E // 3])
+        vals = np.sort(np.concatenate([small[: E - hub], np.full(hub, cut)]))
+        n_out = int(vals[-1]) - 20
+    elif name == "empty_rows":  # empty rows before the first key, between keys, after the last
+        vals = 100 + np.cumsum(rng.integers(0, 20, E) * (rng.random(E) < 0.3))
+        n_out = int(vals[-1]) + 50
+    elif name == "all_pads":
+        vals, n_out = np.full(E, 61), 50
+    elif name == "e1":  # one valid slot, the rest pads
+        vals, n_out = np.concatenate([[3], np.full(E - 1, 10)]), 10
+    else:  # negative ids first
+        vals = -40 + np.cumsum(rng.integers(0, 3, E))
+        n_out = int(vals[-1]) - 30
+    return np.minimum(vals, n_out).astype(np.int32) if name != "all_pads" else vals.astype(
+        np.int32), n_out
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("layout,kind", LAYOUTS)
+@pytest.mark.parametrize("case", EDGE_LANES)
+def test_chunked_partition_edge_cases(case, layout, kind, weighted):
+    """The partition's corners through every layout: the plain version
+    against the reference's kernel, at rtol 1e-5 and atol 1e-6 * max|out|
+    (rows of hundreds of terms cancel to near 0 in two summation orders)."""
+    vals, n_out = edge_lane(case)
+    ts, js = encode_both(vals, layout)
+    assert not bool(ts.spill) and not bool(js.spill)
+    R, D = ts.anchors.shape[0], 2
+    rng = np.random.default_rng(R)
+    msg = rng.standard_normal((R * CHUNK, D)).astype(np.float32)
+    w = rng.random(R * CHUNK).astype(np.float32)
+    got = _port_sum(ts, torch.from_numpy(msg), n_out,
+                    torch.from_numpy(w) if weighted else None).numpy()
+    want = np.asarray(_ref_sum(js, jnp.asarray(msg), n_out, jnp.asarray(w) if weighted else None))
+    assert got.shape == (n_out, D)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * max(np.abs(want).max(), 1.0))
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("layout,kind", LAYOUTS)
 @pytest.mark.parametrize("R,D", [(1, 3), (7, 1), (11, 8)])
@@ -186,9 +242,45 @@ def test_cuda_chunked_kernels_match_plain(cuda, layout, kind, R, D):
     got = [_port_sum(s, m, n_out), _port_sum(s, m, n_out, wt)]
     torch.cuda.synchronize()
     assert sum(sr.LAUNCHES.values()) == sum(before.values()) + 2
+    # a fixed summation order: the same bits on every call (checked before
+    # the plain versions' outputs exist: at R = 1001, D = 64 fixed2, each
+    # output is 16 GB)
+    assert torch.equal(got[0], _port_sum(s, m, n_out))
+    assert torch.equal(got[1], _port_sum(s, m, n_out, wt))
     args = (s.anchors, s.deltas, s.ovf_pos, s.ovf_add)
-    want = [sr.segment_sum_sorted_chunked_plain(*args, m, n_out, s.hi, s.wide),
-            sr.segment_sum_weighted_chunked_plain(*args, wt, m, n_out, s.hi, s.wide)]
-    for a, b in zip(got, want):
-        atol = 1e-6 * float(b.abs().max())
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+    # one plain output at a time, compared 16 columns at a time, so the
+    # comparison's temporaries fit beside the outputs on an 80 GB card
+    for a, weights in zip(got, (None, wt)):
+        b = (sr.segment_sum_sorted_chunked_plain(*args, m, n_out, s.hi, s.wide) if weights is None
+             else sr.segment_sum_weighted_chunked_plain(*args, wt, m, n_out, s.hi, s.wide))
+        atol = 1e-6 * float(torch.maximum(b.max(), -b.min()))  # max|b| without a copy
+        for c in range(0, D, 16):
+            torch.testing.assert_close(a[:, c:c + 16], b[:, c:c + 16], rtol=1e-5, atol=atol)
+        del b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 8])
+@pytest.mark.parametrize("layout,kind", LAYOUTS)
+@pytest.mark.parametrize("case", EDGE_LANES)
+def test_cuda_chunked_partition_edge_cases(cuda, case, layout, kind, D):
+    """The edge lanes at sizes that span many tiles, held against the
+    float64 oracle over the plain decode (the plain version's atomics sum
+    a row of 3 * 10^5 terms in one float32 chain in no fixed order, whose
+    error nears the tolerance itself).  Two calls give the same bits."""
+    vals, n_out = edge_lane(case, big=True)
+    ts, _ = encode_both(vals, layout) if layout.startswith("fixed") else (
+        tcz.encode_stream_adaptive(torch.from_numpy(vals), hi_cap=0 if layout == "adaptive0" else
+                                   vals.size // CHUNK), None)
+    assert not bool(ts.spill)
+    s = tcz.ChunkedStream(*[None if t is None else t.to(cuda) for t in ts])
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    m = torch.randn((vals.size, D), generator=gen, device=cuda)
+    wt = torch.rand(vals.size, generator=gen, device=cuda)
+    dec = sr._decoded(s.anchors, s.deltas, s.ovf_pos, s.ovf_add, s.hi, s.wide)
+    for weights in (None, wt):
+        got = _port_sum(s, m, n_out, weights)
+        want = tref.segment_sum_weighted_sorted_ref(dec, weights, m, n_out).float()
+        atol = 1e-6 * max(float(want.abs().max()), 1e-30)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+        assert torch.equal(got, _port_sum(s, m, n_out, weights))

@@ -41,6 +41,59 @@ def _inputs(E, n_out, D, seed=0):
 SHAPES = [(E, n, D) for E in (1, 777, 2051) for n in (1, 130, 1000) for D in (1, 3, 8)]
 
 
+# Lanes at the corners of the kernels' partition into tiles, groups and
+# runs: (dst int32 ascending, n_out).  ``big`` sizes them to span many
+# 4096-slot tiles (about 10^6 slots, a row of 3 * 10^5) for the card.
+EDGE_CASES = ["one_row", "hub", "empty_rows", "all_pads", "e1", "negative"]
+
+
+def edge_case(name: str, big: bool = False, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    E, hub = (1_000_000, 300_000) if big else (4_000, 3_000)
+    if name == "one_row":  # every slot in one row
+        dst, n_out = np.full(E, 5), 9
+    elif name == "hub":  # a hub row among rows of 1-3 edges
+        small = np.repeat(np.arange((E - hub) // 2), rng.integers(1, 4, (E - hub) // 2))
+        n_out = int(small[-1]) + 10
+        dst = np.sort(np.concatenate([small, np.full(hub, n_out // 3)]))
+    elif name == "empty_rows":  # empty before the first key, between keys, after the last
+        keys = np.sort(rng.choice(np.arange(100, 8 * E, 7), E // 4, replace=False))
+        dst, n_out = np.repeat(keys, rng.integers(1, 7, keys.size)), 8 * E + 50
+    elif name == "all_pads":  # every slot at or past n_out
+        dst, n_out = np.concatenate([np.full(E // 2, 50), np.full(E - E // 2, 61)]), 50
+    elif name == "e1":
+        dst, n_out = np.array([3]), 10
+    else:  # negative keys first, then ordinary rows
+        dst = np.sort(np.concatenate([rng.integers(-9, 0, E // 8), rng.integers(0, E // 4, E)]))
+        n_out = E // 4
+    return dst.astype(np.int32), n_out
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_segment_sum_partition_edge_cases(case, D, weighted):
+    """The partition's corners, plain version against the reference's
+    kernel and the float64 oracle."""
+    dst, n_out = edge_case(case)
+    rng = np.random.default_rng(D)
+    msg = rng.standard_normal((dst.size, D)).astype(np.float32)
+    w = rng.random(dst.size).astype(np.float32)
+    td, tm, tw = torch.from_numpy(dst), torch.from_numpy(msg), torch.from_numpy(w)
+    if weighted:
+        got = tops.segment_sum_weighted(td, tw, tm, n_out).numpy()
+        want = np.asarray(jops.segment_sum_weighted(
+            jnp.asarray(dst), jnp.asarray(w), jnp.asarray(msg), n_out))
+        oracle = tref.segment_sum_weighted_sorted_ref(td, tw, tm, n_out).numpy()
+    else:
+        got = tops.segment_sum(td, tm, n_out).numpy()
+        want = np.asarray(jops.segment_sum(jnp.asarray(dst), jnp.asarray(msg), n_out))
+        oracle = tref.segment_sum_sorted_ref(td, tm, n_out).numpy()
+    assert got.shape == (n_out, D)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("E,n_out,D", SHAPES)
 def test_segment_sum_matches_reference(E, n_out, D):
     dst, msg, _ = _inputs(E, n_out, D)
@@ -157,3 +210,32 @@ def test_cuda_kernels_match_plain(cuda, E, n_out, D):
                       (b, sr.segment_sum_weighted_sorted_plain(dst, w, msg, n_out))):
         atol = 1e-6 * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    # a fixed summation order: the same bits on every call
+    assert torch.equal(a, sr.segment_sum_sorted(dst, msg, n_out))
+    assert torch.equal(b, sr.segment_sum_weighted_sorted(dst, w, msg, n_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 8, 64])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_cuda_kernels_partition_edge_cases(cuda, case, D):
+    """The edge cases at sizes that span many tiles, held against the
+    float64 oracle: the plain version's atomics sum a row of 3 * 10^5
+    terms in one float32 chain in no fixed order, whose error nears the
+    tolerance itself.  Two calls give the same bits."""
+    dst, n_out = edge_case(case, big=True)
+    if D == 64:  # a quarter of the slots keeps the messages at 256 MB
+        dst, n_out = edge_case(case, big=True)[0][::4].copy(), n_out
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    dst = torch.from_numpy(dst).to(cuda)
+    msg = torch.randn((dst.numel(), D), generator=gen, device=cuda)
+    w = torch.rand(dst.numel(), generator=gen, device=cuda)
+    for kern, ref in ((lambda: sr.segment_sum_sorted(dst, msg, n_out),
+                       lambda: tref.segment_sum_sorted_ref(dst, msg, n_out)),
+                      (lambda: sr.segment_sum_weighted_sorted(dst, w, msg, n_out),
+                       lambda: tref.segment_sum_weighted_sorted_ref(dst, w, msg, n_out))):
+        got = kern()
+        want = ref().float()
+        atol = 1e-6 * max(float(want.abs().max()), 1e-30)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+        assert torch.equal(got, kern())
