@@ -262,6 +262,7 @@ def phase_env(smi: str) -> None:
         "nvcc_s": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
         "flash_decode_ptxas": ptxas_summary(_build.BUILD_INFO.get("flash_decode", {})),
         "block_spmm_ptxas": ptxas_summary(_build.BUILD_INFO.get("block_spmm", {})),
+        "delta_decode_ptxas": ptxas_summary(_build.BUILD_INFO.get("delta_decode", {})),
     })
 
 
@@ -279,6 +280,14 @@ def ptxas_summary(info: dict) -> list:
             if short:  # e.g. flash_tma_kernel<bf16, Q<=3>
                 kern, t, qm = short.groups()
                 name = f"{kern}<{'f32' if t == 'f' else 'bf16'}, Q<={qm}>"
+            short = re.search(r"(chunked_decode_kernel)ILi(\d)ELb([01])E", name)
+            if short:  # e.g. chunked_decode_kernel<1, adaptive>
+                kern, width, adaptive = short.groups()
+                name = f"{kern}<{width}{', adaptive' if adaptive == '1' else ''}>"
+            for kern in ("tile_prefix_kernel", "padded_decode_kernel", "adaptive_decode_kernel",
+                         "prepass_kernel"):
+                if f"{len(kern)}{kern}" in name:
+                    name = kern
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -619,11 +628,12 @@ def padded_decode_bound(R: int, L: int):
 def chunked_decode_bound(s):
     """Least time (ms) of a chunked decode of stream ``s``: the lane, the
     hi rows that wide chunks use, per row the anchor and the escape table
-    (adaptive: the wide tag and the hi row index too), and 4 B per id
-    written; one add per id and per escape over the f32 peak."""
+    (adaptive: the wide tag too; the kernel finds each hi row from the
+    tags, so no index is read), and 4 B per id written; one add per id and
+    per escape over the f32 peak."""
     R, K = s.ovf_pos.shape
     L = s.deltas.shape[1]
-    per_row = 4 + 8 * K + (5 if s.hi is not None else 0)
+    per_row = 4 + 8 * K + (1 if s.hi is not None else 0)
     hi_used = 0 if s.hi is None or s.hi_cap == 0 else int(s.wide.sum()) * L
     nbytes = s.deltas.numel() * s.deltas.element_size() + hi_used + per_row * R + 4 * R * L
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, R * (L + K) / F32_FLOP_PER_S
@@ -641,6 +651,40 @@ def decode_calls(s):
                 lambda: dd.delta_decode_chunked_plain(a, d, p, v))
     return (lambda: dd.delta_decode_chunked_adaptive(a, d, s.hi, s.wide, p, v),
             lambda: dd.delta_decode_chunked_adaptive_plain(a, d, s.hi, s.wide, p, v))
+
+
+def device_us(ev) -> float:
+    """Device time (us) of a ``torch.profiler`` key average, under either
+    name PyTorch has given it."""
+    return float(getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0) or 0)
+
+
+def launch_split(fn, reps: int = 20) -> dict:
+    """One call of a kernel wrapper split into its host and device parts:
+    ``host_us`` is the wrapper's own time per call on the host clock (calls
+    issued back to back, no sync between, no profiler); ``device`` names
+    each device activity that ``torch.profiler`` saw in ``reps`` calls
+    with its us and count per call, so a wrapper that launches anything
+    besides its kernel shows it.  Empty ``device`` means the profiler saw
+    no device time here."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = {ev.key[:80]: {"us": device_us(ev) / reps, "count": ev.count / reps}
+              for ev in prof.key_averages()
+              if device_us(ev) > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA")}
+    return {"host_us": host_us, "device": device}
 
 
 def check_equal(got, want, what: str) -> float:
@@ -677,6 +721,72 @@ def escape_rows(R: int, width: int, seed: int):
     anchors = rng.integers(-(2**31), 2**31, R, dtype=np.int64).astype(np.int32)
     return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
             for x in (anchors, deltas, pos.astype(np.int32), add.astype(np.int32))]
+
+
+def hand_chunk_rows(R: int, n_slots: int, seed: int, width: int = 1, table: str = "mixed"):
+    """Chunk rows built by hand, on the card: anchors and escape values
+    over the whole int32 range (the decode wraps); with ``table="mixed"``
+    about half the entries act, at random columns and the corners (below
+    0, 0, 1, 127), the rest are padding at 128 and past it with values that
+    must never act; ``table="padding"`` pads every entry."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lim = 128 if width == 1 else 1 << 15
+    deltas = rng.integers(-lim, lim, (R, 128)).astype(np.int8 if width == 1 else np.int16)
+    deltas[:, 0] = 0
+    anchors = rng.integers(-(2**31), 2**31, R, dtype=np.int64).astype(np.int32)
+    cols = rng.choice(np.array([-7, -1, 0, 1, 127, *range(2, 127)]), (R, n_slots))
+    live = rng.random((R, n_slots)) < (0.5 if table == "mixed" else 0.0)
+    pad = rng.choice(np.array([128, 129, 1 << 30]), (R, n_slots))
+    pos = np.where(live, cols, pad).astype(np.int32)
+    add = rng.integers(-(2**31), 2**31, (R, n_slots), dtype=np.int64).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (anchors, deltas, pos, add)]
+
+
+def decode_corners(rows_per_warp: int, rows_per_block: int, rows_per_prefix_block: int) -> list:
+    """(name, ChunkedStream) at the chunked kernels' corners: row counts at
+    the tile's edges (rows a warp and rows a block, each +-1) for the int8
+    and int16 lanes and the adaptive one; 0, 1 and 32 escape slots, tables
+    of padding only; adaptive tags all narrow, all wide, straddling tile
+    edges, past the hi plane (the clamp), with H = 0, and at the edges of
+    the pre-pass's blocks (+-1, and 3 blocks and 5 rows)."""
+    import torch
+
+    from repro_torch.core import compressed as cz
+
+    edges = sorted({n + e for n in (rows_per_warp, rows_per_block) for e in (-1, 0, 1)})
+    B = rows_per_block
+    none = torch.zeros((), dtype=torch.bool, device="cuda")
+    out = []
+    for R in edges:
+        for width in (1, 2):
+            out.append((f"rows{R}_int{8 * width}",
+                        cz.ChunkedStream(*hand_chunk_rows(R, 8, R, width), none)))
+    for k in (0, 1, 32):
+        for table in ("mixed", "padding"):
+            out.append((f"slots{k}_{table}_int8",
+                        cz.ChunkedStream(*hand_chunk_rows(2 * B + 5, k, k, 1, table), none)))
+    tags = {  # name -> (R, wide rows, H, escape slots)
+        "all_narrow": (2 * B + 5, lambda r: r < 0, 3, 8),
+        "all_wide": (2 * B + 5, lambda r: r >= 0, 2 * B + 5, 8),
+        "straddle": (3 * B, lambda r: (abs(r - B) <= 3) | (abs(r - 2 * B) <= 2), 12, 8),
+        "past_cap": (2 * B + 5, lambda r: r % 3 != 1, 7, 8),
+        "h0": (B + 1, lambda r: r % 2 == 0, 0, 8),
+        **{f"slots{k}": (B + 1, lambda r: r % 4 == 0, 9, k) for k in (0, 1, 32)},
+        **{f"edge{R}": (R, lambda r: r % 5 != 2, R, 8) for R in edges},
+        **{f"edge{R}": (R, lambda r: r % 5 != 2, R // 2, 8)
+           for R in (rows_per_prefix_block + e for e in (-1, 0, 1))},
+        "prefix_blocks": (3 * rows_per_prefix_block + 5,
+                          lambda r: (r % 7 < 3) | (r % rows_per_prefix_block < 3), 10_000, 8),
+    }
+    for name, (R, wide_of, H, k) in tags.items():
+        a, d, p, v = hand_chunk_rows(R, k, R + H + k)
+        hi = np.random.default_rng(R + 1).integers(-128, 128, (H, 128)).astype(np.int8)
+        wide = torch.from_numpy(wide_of(np.arange(R))).cuda()
+        out.append((f"adaptive_{name}", cz.ChunkedStream(a, d, p, v, none,
+                                                         torch.from_numpy(hi).cuda(), wide)))
+    return out
 
 
 def phase_decode_kernels() -> None:
@@ -724,7 +834,17 @@ def phase_decode_kernels() -> None:
             rows.append({"kernel": "delta_decode_chunked_adaptive", "lane": kind, "R": R,
                          "wide": n_wide, "hi_rows": s.hi_cap,
                          "escapes": int((s.ovf_pos < 128).sum()), "max_abs_err": err})
-    emit({"phase": "decode_kernels", "tolerance": "exact", "cases": rows,
+    plan = dd.chunked_plan()
+    for name, s in decode_corners(plan["rows_per_warp"], plan["rows_per_block"],
+                                  plan["rows_per_prefix_block"]):
+        kern, plain = decode_calls(s)
+        rows.append({"kernel": "delta_decode_chunked" + ("_adaptive" if s.hi is not None else ""),
+                     "corner": name, "R": s.deltas.shape[0], "K": s.ovf_pos.shape[1],
+                     "wide": None if s.wide is None else int(s.wide.sum()),
+                     "hi_rows": None if s.hi is None else s.hi.shape[0],
+                     "max_abs_err": check_equal(kern(), plain(), f"decode corner {name}"),
+                     "same_bits": same_bits(kern, f"decode corner {name}")})
+    emit({"phase": "decode_kernels", "tolerance": "exact", "plan": plan, "cases": rows,
           "phase_s": time.perf_counter() - t0})
 
 
@@ -1288,8 +1408,12 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
             "layout": name, "lane": "srcbd_c", "R": s.deltas.shape[0], "K": s.k,
             "wide": 0 if s.wide is None else int(s.wide.sum()),
             "escapes": int((s.ovf_pos < cz.CHUNK).sum()), "stream_bytes": cz.stream_nbytes(s),
-            "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": err, "same_bits": same_bits(kern, f"compressed_scale {name} decode"),
+            "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
+            "plain_ms": time_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            # the wrapper's host time against the device's, per call
+            "split": launch_split(kern) if s.hi is not None else None,
         })
     out.update(kernels=cases, decode_kernels=decode_cases, phase_s=time.perf_counter() - t_phase)
     emit(out)
@@ -2194,6 +2318,7 @@ def main() -> int:
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
+            **{k: c[k] for k in ("pipelined_ms", "same_bits", "split") if k in c},
         })
     row = sampled["fanout_row"]
     summary.append({

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Side-by-side timing of segment-sum kernel designs on one GPU.
 
-    git show 08c8542:src/repro_torch/kernels/csrc/segment_reduce.cu > build/old_segment_reduce.cu
-    python3 scripts/segment_sum_ab.py --old build/old_segment_reduce.cu
+    mkdir -p build/old && git archive 10f5a20 src/repro_torch/kernels/csrc | tar -x -C build/old
+    python3 scripts/segment_sum_ab.py --old build/old/src/repro_torch/kernels/csrc/segment_reduce.cu
 
 Builds, with ``nvcc``, three libraries of the same C interface:
 ``new`` (``src/repro_torch/kernels/csrc/segment_reduce.cu`` as it is),
 ``fused`` (the same text with the carry fix-up run by the last block to
 finish, elected by a tile counter it sets back to 0, instead of a second
 launch; generated here by text substitution) and, with ``--old``, an
-earlier ``segment_reduce.cu`` whose C entries take an int64[n_out + 1]
-bounds scratch in place of the carries (the bounds-pass design of commit
-08c8542).
+earlier ``segment_reduce.cu``, built with the ``chunk_decode.cuh`` beside
+it (the current one where there is none).  A text older than commit
+10f5a20 is the bounds-pass design, whose C entries take an int64[n_out +
+1] bounds scratch in place of the carries (commit 08c8542's): pass
+``--old-bounds`` with it.
 Each is held against the plain version, then timed in turns (a, b, c,
 c, b, a: ``ms`` per synchronised call and ``pipelined_ms`` back to back)
 on the scale phase's raw lane (rMAT 2^22, 2^25 draws, padded to 2^26
@@ -125,7 +127,11 @@ def build(args) -> dict:
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "segment_reduce.cu").write_text(text)
-        (d / "chunk_decode.cuh").write_text((CSRC / "chunk_decode.cuh").read_text())
+        # an older text is built with the header beside it, where there is one
+        header = Path(args.old).parent if name == "old" else CSRC
+        if not (header / "chunk_decode.cuh").is_file():
+            header = CSRC
+        (d / "chunk_decode.cuh").write_text((header / "chunk_decode.cuh").read_text())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "segment_reduce.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -139,7 +145,9 @@ def build(args) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", help="an earlier segment_reduce.cu (bounds scratch) to time beside")
+    ap.add_argument("--old", help="an earlier segment_reduce.cu to time beside")
+    ap.add_argument("--old-bounds", action="store_true",
+                    help="the --old text takes a bounds scratch (commits before 10f5a20)")
     args = ap.parse_args()
     import torch
 
@@ -164,7 +172,7 @@ def main() -> int:
     n, E = 2**22, 2**26
 
     def scratch(kind, slots, D):
-        if kind == "old":
+        if kind == "old" and args.old_bounds:
             return torch.empty(n + 1, dtype=torch.int64, device=dev)
         tiles = -(-slots // sr.TILE)
         return torch.zeros(16 + -(-8 * tiles // 16) * 16 + 8 * tiles * D, dtype=torch.uint8,

@@ -178,3 +178,11 @@ def scratch(tag: str, device: torch.device, nbytes: int, zeroed: bool = False) -
         buf = make(max(nbytes, 16), dtype=torch.uint8, device=device)
         _SCRATCH[key] = buf
     return buf
+
+
+def drop_scratch(tag: str) -> None:
+    """Forget every ``tag`` buffer, so the next ``scratch`` call makes a new
+    one (zeroed if asked); the caching allocator keeps a freed buffer from
+    reuse until its stream's earlier work is done."""
+    for key in [k for k in _SCRATCH if k[0] == tag]:
+        del _SCRATCH[key]

@@ -372,6 +372,7 @@ struct RawKeys {
 template <int kWidth, bool kAdaptive>
 struct ChunkKeys {
   ChunkedLane c;
+  const int* hi_row;  // adaptive: int32[R], the wrapper's hi-plane row of each chunk
   struct Shared {
     int keys[kTile + kTile / 32];
   };
@@ -386,7 +387,12 @@ struct ChunkKeys {
       const long long r = static_cast<long long>(blockIdx.x) * (kTile / kChunk) + i / kChunk;
       int v[kSlotsPerLane];
       if (r < c.R) {  // warp-uniform: decode_row shuffles
-        decode_row<kWidth, kAdaptive>(c, r, lane, v);
+        int hrow = -1;  // narrow
+        if (kAdaptive && c.H > 0) {
+          const int h = __ldg(hi_row + r);  // issued beside the tag, not after it
+          if (c.wide[r] != 0) hrow = h;
+        }
+        decode_row<kWidth, kAdaptive>(c, r, lane, hrow, v);
 #pragma unroll
         for (int j = 0; j < kSlotsPerLane; ++j) v[j] = clamp_key(v[j], n_out);
       } else {
@@ -631,18 +637,22 @@ int launch(const Keys& keys, const float* w, const float* msg, float* out, void*
 }
 
 template <bool kWeighted>
-int launch_chunked(const ChunkedLane& c, int width, bool adaptive, const float* w,
-                   const float* msg, float* out, void* scratch, int D, int n_out, void* stream) {
+int launch_chunked(const ChunkedLane& c, const int* hi_row, int width, bool adaptive,
+                   const float* w, const float* msg, float* out, void* scratch, int D, int n_out,
+                   void* stream) {
   if (c.R <= 0 || c.K < 0 || c.K > 32) return static_cast<int>(cudaErrorInvalidValue);
   const long long E = c.R * kChunk;
   if (adaptive) {
-    return launch<kWeighted>(ChunkKeys<1, true>{c}, w, msg, out, scratch, E, D, n_out, stream);
+    return launch<kWeighted>(ChunkKeys<1, true>{c, hi_row}, w, msg, out, scratch, E, D, n_out,
+                             stream);
   }
   if (width == 1) {
-    return launch<kWeighted>(ChunkKeys<1, false>{c}, w, msg, out, scratch, E, D, n_out, stream);
+    return launch<kWeighted>(ChunkKeys<1, false>{c, nullptr}, w, msg, out, scratch, E, D, n_out,
+                             stream);
   }
   if (width == 2) {
-    return launch<kWeighted>(ChunkKeys<2, false>{c}, w, msg, out, scratch, E, D, n_out, stream);
+    return launch<kWeighted>(ChunkKeys<2, false>{c, nullptr}, w, msg, out, scratch, E, D, n_out,
+                             stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -668,7 +678,8 @@ extern "C" int repro_segment_sum_weighted_sorted(const int* dst, const float* w,
 }
 
 // Chunked entry points.  anchors: int32[R]; deltas: int8 or int16 [R, 128]
-// (`width` bytes); ovf_pos, ovf_add: int32[R, K], K <= 32; w: float32[R *
+// (`width` bytes, base aligned to 4 deltas: decode_row loads a lane's 4 as
+// one word; hi 4-byte aligned); ovf_pos, ovf_add: int32[R, K], K <= 32; w: float32[R *
 // 128]; msg: float32[R * 128, D]; out, scratch as above with E = R * 128.
 // The adaptive ones take the int8 lane, hi: int8[H, 128], wide: bool[R]
 // and hi_row: int32[R] (cumsum(wide) - 1 clamped to [0, H)); H == 0 reads
@@ -678,8 +689,9 @@ extern "C" int repro_segment_sum_sorted_chunked(const int* anchors, const void* 
                                                 const float* msg, float* out, void* scratch,
                                                 long long R, int K, int D, int n_out,
                                                 void* stream) {
-  const ChunkedLane c{anchors, deltas, nullptr, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
-  return launch_chunked<false>(c, width, false, nullptr, msg, out, scratch, D, n_out, stream);
+  const ChunkedLane c{anchors, deltas, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
+  return launch_chunked<false>(c, nullptr, width, false, nullptr, msg, out, scratch, D, n_out,
+                               stream);
 }
 
 extern "C" int repro_segment_sum_weighted_chunked(const int* anchors, const void* deltas,
@@ -688,8 +700,8 @@ extern "C" int repro_segment_sum_weighted_chunked(const int* anchors, const void
                                                   const float* msg, float* out, void* scratch,
                                                   long long R, int K, int D, int n_out,
                                                   void* stream) {
-  const ChunkedLane c{anchors, deltas, nullptr, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
-  return launch_chunked<true>(c, width, false, w, msg, out, scratch, D, n_out, stream);
+  const ChunkedLane c{anchors, deltas, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
+  return launch_chunked<true>(c, nullptr, width, false, w, msg, out, scratch, D, n_out, stream);
 }
 
 extern "C" int repro_segment_sum_sorted_chunked_adaptive(
@@ -697,8 +709,8 @@ extern "C" int repro_segment_sum_sorted_chunked_adaptive(
     int H, const int* ovf_pos, const int* ovf_add, const float* msg, float* out, void* scratch,
     long long R, int K, int D, int n_out, void* stream) {
   const ChunkedLane c{anchors, deltas, static_cast<const signed char*>(hi),
-                      static_cast<const unsigned char*>(wide), hi_row, ovf_pos, ovf_add, R, K, H};
-  return launch_chunked<false>(c, 1, true, nullptr, msg, out, scratch, D, n_out, stream);
+                      static_cast<const unsigned char*>(wide), ovf_pos, ovf_add, R, K, H};
+  return launch_chunked<false>(c, hi_row, 1, true, nullptr, msg, out, scratch, D, n_out, stream);
 }
 
 extern "C" int repro_segment_sum_weighted_chunked_adaptive(
@@ -706,6 +718,6 @@ extern "C" int repro_segment_sum_weighted_chunked_adaptive(
     int H, const int* ovf_pos, const int* ovf_add, const float* w, const float* msg, float* out,
     void* scratch, long long R, int K, int D, int n_out, void* stream) {
   const ChunkedLane c{anchors, deltas, static_cast<const signed char*>(hi),
-                      static_cast<const unsigned char*>(wide), hi_row, ovf_pos, ovf_add, R, K, H};
-  return launch_chunked<true>(c, 1, true, w, msg, out, scratch, D, n_out, stream);
+                      static_cast<const unsigned char*>(wide), ovf_pos, ovf_add, R, K, H};
+  return launch_chunked<true>(c, hi_row, 1, true, w, msg, out, scratch, D, n_out, stream);
 }

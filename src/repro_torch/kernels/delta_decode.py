@@ -20,7 +20,13 @@ Contracts (all int32, wrapping in 32 bits as an int32 cumsum does):
   chunk) and K <= 32; the plain versions take any L and K.
 
 Dispatch: a tensor on the CPU gets the plain version; a CUDA tensor gets
-the kernel or an exception — never the plain version.
+the kernel or an exception — never the plain version.  On the card a
+chunked call makes no torch op but the output's allocation, and counts
+one launch: one CUDA launch for a fixed width, two for the adaptive form
+(a pre-pass finds each tile's first hi row by a look-back over the wide
+tags, then the decode), whose buffer is kept per stream
+(``_build.scratch``) with a new epoch each call (so a CUDA graph must not
+capture it: a replay would repeat the epoch).
 
 This module imports nothing from ``core``: ``core/compressed.decode_rows``
 calls it, and ``kernels/segment_reduce`` imports ``core/compressed``.
@@ -33,8 +39,9 @@ import torch
 
 from . import _build
 
-KERNEL_CHUNK = 128  # chunk row the CUDA kernels decode (one warp, 4 slots per lane)
+KERNEL_CHUNK = 128  # chunk row the CUDA kernels decode (a warp, 4 slots per lane)
 KERNEL_MAX_SLOTS = 32  # escape slots per row: one per lane
+KERNEL_MAX_ROWS = 2**30  # the look-back counts wide chunks in 30 bits
 
 # Launches of each kernel in this process (bumped only where the kernel
 # is launched, never by the plain versions).
@@ -132,10 +139,60 @@ def _check_chunked(anchors, deltas, ovf_pos, ovf_add, hi=None, wide=None) -> tor
             raise TypeError(f"wide must be bool ({R},)")
     dev = _build.check_operands([t for t in (anchors, deltas, ovf_pos, ovf_add, hi, wide)
                                  if t is not None])
-    if dev.type == "cuda" and (L != KERNEL_CHUNK or K > KERNEL_MAX_SLOTS):
-        raise ValueError(f"the chunked decode kernel takes rows of {KERNEL_CHUNK} slots and at "
-                         f"most {KERNEL_MAX_SLOTS} escape slots, got L={L}, K={K}")
+    if dev.type == "cuda":
+        if L != KERNEL_CHUNK or K > KERNEL_MAX_SLOTS or R >= KERNEL_MAX_ROWS:
+            raise ValueError(f"the chunked decode kernel takes rows of {KERNEL_CHUNK} slots, at "
+                             f"most {KERNEL_MAX_SLOTS} escape slots and fewer than "
+                             f"{KERNEL_MAX_ROWS} rows, got L={L}, K={K}, R={R}")
+        check_lane_aligned(deltas, hi, wide)
     return dev
+
+
+def check_lane_aligned(deltas: torch.Tensor, hi: torch.Tensor | None = None,
+                       wide: torch.Tensor | None = None) -> None:
+    """The kernels load a lane's 4 deltas as one 32-bit (int8) or 64-bit
+    (int16) word and its 4 hi bytes as one 32-bit word, and the adaptive
+    decode's pre-pass reads the tags 16 at a time: raises unless the bases
+    are so aligned (whole rows, and tensors as allocated, keep it)."""
+    if (deltas.data_ptr() % (4 * deltas.element_size()) or (hi is not None and hi.data_ptr() % 4)
+            or (wide is not None and wide.data_ptr() % 16)):
+        raise ValueError("the chunked kernels need the delta lane aligned to 4 deltas, the hi "
+                         "plane to 4 bytes and the wide tags to 16")
+
+
+_PLAN: dict[str, int] = {}  # the chunked kernels' tile, read from the library once
+
+
+def chunked_plan() -> dict[str, int]:
+    """``{"rows_per_warp", "rows_per_block", "rows_per_prefix_block"}`` of
+    the chunked kernels (the last: rows whose tags a block of the adaptive
+    pre-pass counts; the library is built on first use)."""
+    if not _PLAN:
+        fn = _build.c_function("delta_decode", "repro_delta_decode_chunked_plan",
+                               [ctypes.c_void_p] * 3)
+        vals = [ctypes.c_int() for _ in range(3)]
+        fn(*map(ctypes.byref, vals))
+        _PLAN.update(zip(("rows_per_warp", "rows_per_block", "rows_per_prefix_block"),
+                         (v.value for v in vals)))
+    return _PLAN
+
+
+_EPOCH = [0]  # the last look-back epoch handed out (status words of older calls differ)
+
+
+def _lookback(R: int, device: torch.device) -> list:
+    """The adaptive decode's look-back arguments: this stream's buffer (a
+    16-byte ticket counter, a status word per 256 tiles and a prefix per
+    tile, within 12 B a tile; zero when made, and the counter left zero by
+    every call) and a new nonzero epoch.  When the 32-bit epoch would wrap,
+    every buffer is dropped, so the next ones start zeroed."""
+    _EPOCH[0] += 1
+    if _EPOCH[0] >= 2**32:
+        _build.drop_scratch("decode_lookback")
+        _EPOCH[0] = 1
+    tiles = -(-R // chunked_plan()["rows_per_block"])
+    buf = _build.scratch("decode_lookback", device, 16 + 12 * tiles, zeroed=True)
+    return [buf, ctypes.c_uint(_EPOCH[0])]
 
 
 def _launch(fn_name: str, counter: str, args: list, out: torch.Tensor) -> torch.Tensor:
@@ -186,8 +243,6 @@ def delta_decode_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ovf_add) -
     out = torch.empty(tuple(deltas.shape), dtype=torch.int32, device=deltas.device)
     if R == 0:
         return out
-    H = hi.shape[0]
-    hi_row = hi_rows(wide, H)  # O(R); no (R, L) gathered plane
     return _launch("repro_delta_decode_chunked_adaptive", "delta_decode_chunked_adaptive",
-                   [anchors, deltas, hi, wide, hi_row, ctypes.c_int(H), ovf_pos, ovf_add, out,
-                    ctypes.c_longlong(R), ctypes.c_int(K)], out)
+                   [anchors, deltas, hi, wide, ctypes.c_int(hi.shape[0]), ovf_pos, ovf_add, out,
+                    ctypes.c_longlong(R), ctypes.c_int(K), *_lookback(R, out.device)], out)

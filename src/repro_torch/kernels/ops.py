@@ -10,7 +10,8 @@ ragged shapes as they are and never visit a row at or past ``n_out``, so
 the same contract — any ``dst >= n_out`` is dropped — holds with no
 padding.  The reference also gathers an adaptive stream's compacted hi
 plane into an aligned (R, CHUNK) transient (``_gather_hi``); the Hopper
-kernels read the compacted plane through an O(R) row index instead.
+kernels read the compacted plane in place (the decode finds each wide
+chunk's row itself, the segment sums through an O(R) row index).
 The decode wrappers need no padding either: the padded decode kernel
 takes any row count and length, the chunked ones any row count.  Nor do
 the GNN wrappers: the reference pads the fanout batch to a multiple of 8
@@ -56,8 +57,8 @@ def decode_chunked_stream(
 ) -> torch.Tensor:
     """Decode escape-lane chunk rows (a ``core/compressed.ChunkedStream``'s
     arrays) to int32 (R, L).  Pass ``hi``/``wide`` for adaptive streams;
-    the compacted hi plane is read through an O(R) row index, with no
-    gathered (R, L) plane."""
+    the compacted hi plane is read in place, with no gathered (R, L)
+    plane."""
     a, d = anchors.to(torch.int32).contiguous(), deltas.contiguous()
     p, v = ovf_pos.to(torch.int32).contiguous(), ovf_add.to(torch.int32).contiguous()
     if hi is None:

@@ -195,6 +195,7 @@ _CHUNKED = {
 def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) -> torch.Tensor:
     adaptive, weighted = hi is not None, w is not None
     counter, fn_name = _CHUNKED[(weighted, adaptive)]
+    delta_decode.check_lane_aligned(deltas, hi)  # the shared decode_row's vector loads
     R, K = ovf_pos.shape
     D = msg.shape[1]
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)

@@ -7,10 +7,15 @@ get the same numpy inputs from a seed: padded rows of ragged shapes
 (``decode_chunks``), host C-tree pools chunked at hash heads and packed
 in uint8 and uint16 with escapes (``decode_pool``), fixed-width int8 and
 int16 chunk rows with escapes at columns 0, 1, 127, below 0 and at the
-row's end, and adaptive streams built by the reference's encoder (wide
-chunks, escapes, an empty hi plane).  Tolerance: exact equality (integer
-decode).  The reference's side stays at <= 64 rows, since interpret mode
-is slow.
+row's end, adaptive streams built by the reference's encoder (wide
+chunks, escapes, an empty hi plane), and streams built by hand at the
+kernels' tile edges (rows a warp and rows a block, each +-1), with 0, 1
+and 32 escape slots, tables of padding only, and adaptive tags all wide,
+all narrow, straddling a tile edge, past the hi plane (the clamp) or with
+H = 0.  Tolerance: exact equality (integer decode).  The reference's side
+stays at <= 64 rows, since interpret mode is slow; its Pallas kernel takes
+no table of 0 slots, so a 0-slot stream is held against the same stream
+with one padding slot.
 
 Tests marked ``cuda`` hold the CUDA kernels against their plain versions
 on a GPU; they skip on a machine without one.
@@ -38,6 +43,11 @@ from repro_torch.kernels import ref as tref
 
 CHUNK = tcz.CHUNK
 K = tcz.OVF_SLOTS
+# The chunked kernels' tile (csrc/delta_decode.cu): rows a warp holds, rows
+# a block decodes, rows whose tags a block of the adaptive pre-pass counts;
+# test_cuda_chunked_plan holds the library to them.
+ROWS_PER_WARP, ROWS_PER_BLOCK, ROWS_PER_PREFIX_BLOCK = 4, 32, 8192
+TILE_EDGES = sorted({n + e for n in (ROWS_PER_WARP, ROWS_PER_BLOCK) for e in (-1, 0, 1)})
 
 
 def _t(x):
@@ -147,7 +157,7 @@ def chunk_rows(R, width, seed, n_esc=3):
 
 
 @pytest.mark.parametrize("width", [1, 2])
-@pytest.mark.parametrize("R", [1, 4, 7, 13])
+@pytest.mark.parametrize("R", sorted({1, 7, 13, *TILE_EDGES}))
 def test_decode_chunked_stream_fixed_matches_reference(R, width):
     a, d, p, v = chunk_rows(R, width, seed=R * 10 + width)
     got = tops.decode_chunked_stream(_t(a), _t(d), _t(p), _t(v))
@@ -207,6 +217,113 @@ def test_decode_adaptive_matches_reference(case):
     np.testing.assert_array_equal(got, np.asarray(jops.decode_chunked_stream(
         j.anchors, j.deltas, j.ovf_pos, j.ovf_add, hi=j.hi, wide=j.wide)))
     np.testing.assert_array_equal(tcz.decode_rows(s).numpy(), got)
+
+
+def hand_rows(R, n_slots, seed, width=1, table="mixed"):
+    """Chunk rows built by hand: anchors over the whole int32 range and
+    escape values too (the decode wraps); with ``table="mixed"`` about half
+    the entries act, at random columns and the corners (below 0, 0, 1,
+    127), the rest are padding at 128 and past it, with values that must
+    never act; ``table="padding"`` pads every entry."""
+    rng = np.random.default_rng(seed)
+    lim = 128 if width == 1 else 1 << 15
+    deltas = rng.integers(-lim, lim, (R, CHUNK)).astype(np.int8 if width == 1 else np.int16)
+    deltas[:, 0] = 0
+    anchors = rng.integers(-(2**31), 2**31, R, dtype=np.int64).astype(np.int32)
+    cols = rng.choice(np.array([-7, -1, 0, 1, CHUNK - 1, *range(2, CHUNK - 1)]), (R, n_slots))
+    live = rng.random((R, n_slots)) < (0.5 if table == "mixed" else 0.0)
+    pad = rng.choice(np.array([CHUNK, CHUNK + 1, 1 << 30]), (R, n_slots))
+    ovf_pos = np.where(live, cols, pad).astype(np.int32)
+    ovf_add = rng.integers(-(2**31), 2**31, (R, n_slots), dtype=np.int64).astype(np.int32)
+    return anchors, deltas, ovf_pos, ovf_add
+
+
+# adaptive streams built by hand: case -> (R, wide rows, H, escape slots)
+_TAGS = {
+    "all_narrow": (37, lambda R: np.zeros(R, bool), 3, K),
+    "all_wide": (37, lambda R: np.ones(R, bool), 37, K),
+    "straddle": (70, lambda R: np.isin(np.arange(R), [*range(29, 36), *range(62, 67)]), 12, K),
+    "past_cap": (45, lambda R: np.arange(R) % 3 != 1, 7, K),  # 30 wide chunks, 7 hi rows
+    "h0": (33, lambda R: np.arange(R) % 2 == 0, 0, K),
+    "slots0": (33, lambda R: np.arange(R) % 4 == 0, 9, 0),
+    "slots1": (33, lambda R: np.arange(R) % 4 == 0, 9, 1),
+    "slots32": (33, lambda R: np.arange(R) % 4 == 0, 9, 32),
+    **{f"edge{R}": (R, lambda R: np.arange(R) % 5 != 2, R, K) for R in TILE_EDGES},
+}
+
+
+def hand_adaptive(case, seed=0):
+    """(anchors, int8 lane, ovf_pos, ovf_add, hi, wide) for ``_TAGS[case]``,
+    the hi plane random."""
+    R, tags, H, n_slots = _TAGS[case]
+    a, d, p, v = hand_rows(R, n_slots, seed=seed + R)
+    hi = np.random.default_rng(seed + 1).integers(-128, 128, (H, CHUNK)).astype(np.int8)
+    return a, d, p, v, hi, tags(R)
+
+
+def reference_decode(a, d, p, v, hi=None, wide=None):
+    """The reference's ``ops.decode_chunked_stream`` (its Pallas kernels,
+    in interpret mode); a table of 0 slots goes as one padding slot."""
+    if p.shape[1] == 0:
+        p, v = np.full((p.shape[0], 1), CHUNK, np.int32), np.zeros((p.shape[0], 1), np.int32)
+    j = [jnp.asarray(x) for x in (a, d, p, v)]
+    if hi is None:
+        return np.asarray(jops.decode_chunked_stream(*j))
+    return np.asarray(jops.decode_chunked_stream(*j, hi=jnp.asarray(hi), wide=jnp.asarray(wide)))
+
+
+@pytest.mark.parametrize("table", ["mixed", "padding"])
+@pytest.mark.parametrize("n_slots", [0, 1, 32])
+@pytest.mark.parametrize("width", [1, 2])
+def test_decode_chunked_tables_match_reference(width, n_slots, table):
+    a, d, p, v = hand_rows(37, n_slots, seed=100 * width + n_slots, width=width, table=table)
+    got = tops.decode_chunked_stream(*map(_t, (a, d, p, v)))
+    np.testing.assert_array_equal(got.numpy(), reference_decode(a, d, p, v))
+    np.testing.assert_array_equal(got.numpy(), dd.delta_decode_chunked_plain(*map(_t, (a, d, p, v))))
+    if table == "padding":  # no entry acts: the plain cumsum
+        want = a[:, None].astype(np.int64) + np.cumsum(d.astype(np.int64), axis=1)
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", list(_TAGS))
+def test_decode_adaptive_hand_built_matches_reference(case):
+    a, d, p, v, hi, wide = hand_adaptive(case)
+    got = tops.decode_chunked_stream(*map(_t, (a, d, p, v)), hi=_t(hi), wide=_t(wide))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (a.size, CHUNK)
+    j = jcz.ChunkedStream(*map(jnp.asarray, (a, d, p, v)), jnp.asarray(False), jnp.asarray(hi),
+                          jnp.asarray(wide))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jcz.decode_rows(j)).astype(np.int32))
+    if case == "h0":
+        # with no hi plane the codec reads every chunk narrow (no wide chunk
+        # exists without spilling, reference compressed.py:236); the
+        # reference's Pallas path reads a tagged chunk's lane as unsigned
+        # bytes there, so it is held on the rows not tagged
+        narrow = ~wide
+        np.testing.assert_array_equal(got.numpy()[narrow],
+                                      reference_decode(a, d, p, v, hi, wide)[narrow])
+        return
+    np.testing.assert_array_equal(got.numpy(), reference_decode(a, d, p, v, hi, wide))
+    if case == "past_cap":  # wide chunks past the plane read its last row
+        assert int(wide.sum()) > hi.shape[0]
+        rows = dd.hi_rows(_t(wide), hi.shape[0])
+        assert int(rows[_t(wide)].max()) == hi.shape[0] - 1
+
+
+def test_check_lane_aligned():
+    """The kernels load a lane's 4 deltas as one word, 4 hi bytes as one
+    word and the wide tags 16 at a time: a base off that alignment raises
+    (on the card; here the check alone)."""
+    lane8 = torch.zeros(2 * CHUNK + 8, dtype=torch.int8)
+    lane16 = torch.zeros(2 * CHUNK + 8, dtype=torch.int16)
+    hi = torch.zeros(CHUNK + 8, dtype=torch.int8)
+    wide = torch.zeros(64, dtype=torch.bool)
+    assert all(x.data_ptr() % 16 == 0 for x in (lane8, lane16, hi, wide))  # the allocator's
+    dd.check_lane_aligned(lane8[4:], hi[4:], wide[16:])
+    dd.check_lane_aligned(lane16[4:])
+    for bad in ((lane8[1:],), (lane8[2:],), (lane16[2:],), (lane8, hi[1:]),
+                (lane8, hi, wide[8:])):
+        with pytest.raises(ValueError):
+            dd.check_lane_aligned(*bad)
 
 
 @pytest.mark.parametrize("layout", ["fixed1", "fixed2", "adaptive"])
@@ -351,3 +468,107 @@ def test_cuda_decode_pool_matches_unpack(cuda):
     for width in ("uint8", "uint16"):
         p = tck.pack_deltas(data, offs, width=width)
         np.testing.assert_array_equal(tops.decode_pool(p, device=cuda), tck.unpack_deltas(p))
+
+
+def corner_arrays(case):
+    """numpy (anchors, deltas, ovf_pos, ovf_add, hi, wide) of a corner case
+    (hi and wide None on a fixed layout): ``rows{R}_int{8|16}``,
+    ``slots{K}_{mixed|padding}_int{8|16}`` or ``adaptive_{_TAGS key}``."""
+    if case.startswith("adaptive_"):
+        return hand_adaptive(case[len("adaptive_"):], seed=7)
+    width = 1 if case.endswith("int8") else 2
+    if case.startswith("rows"):
+        R = int(case[4:case.index("_")])
+        return (*hand_rows(R, K, seed=R, width=width), None, None)
+    n_slots, table = case.split("_")[0][5:], case.split("_")[1]
+    return (*hand_rows(37, int(n_slots), seed=3, width=width, table=table), None, None)
+
+
+CORNERS = ([f"rows{R}_int{8 * w}" for R in TILE_EDGES for w in (1, 2)]
+           + [f"slots{k}_{t}_int{8 * w}" for k in (0, 1, 32) for t in ("mixed", "padding")
+              for w in (1, 2)]
+           + [f"adaptive_{c}" for c in _TAGS] + ["adaptive_prefix_edges"])
+
+
+def prefix_edge_arrays():
+    """An adaptive stream across the pre-pass's blocks: 3 blocks and 5 rows,
+    tags random and wide past the plane near the end, so the look-back
+    spans blocks and each block edge falls inside a run of wide chunks."""
+    R = 3 * ROWS_PER_PREFIX_BLOCK + 5
+    a, d, p, v = hand_rows(R, K, seed=11)
+    rng = np.random.default_rng(12)
+    wide = rng.random(R) < 0.4
+    for e in range(1, 4):
+        wide[e * ROWS_PER_PREFIX_BLOCK - 3:e * ROWS_PER_PREFIX_BLOCK + 3] = True
+    hi = rng.integers(-128, 128, (int(wide.sum()) - 20, CHUNK)).astype(np.int8)
+    return a, d, p, v, hi, wide
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_plan(cuda):
+    """The tile the cases here are cut to."""
+    assert dd.chunked_plan() == {"rows_per_warp": ROWS_PER_WARP, "rows_per_block": ROWS_PER_BLOCK,
+                                 "rows_per_prefix_block": ROWS_PER_PREFIX_BLOCK}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CORNERS)
+def test_cuda_chunked_corners_match_plain(cuda, case):
+    """The kernel against its plain version at the tile edges, the table
+    corners and the tag patterns; two calls give the same bits, one
+    launch each."""
+    arrays = prefix_edge_arrays() if case == "adaptive_prefix_edges" else corner_arrays(case)
+    a, d, p, v, hi, wide = (None if x is None else _t(x).to(cuda) for x in arrays)
+    before = sum(dd.LAUNCHES.values())
+    got = [tops.decode_chunked_stream(a, d, p, v, hi=hi, wide=wide) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sum(dd.LAUNCHES.values()) == before + 2
+    if hi is None:
+        want = dd.delta_decode_chunked_plain(a, d, p, v)
+    else:
+        want = dd.delta_decode_chunked_adaptive_plain(a, d, hi, wide, p, v)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_decode_on_two_streams(cuda):
+    """Two adaptive decodes at once on two streams (each stream has its own
+    look-back buffer), three calls each, against the plain versions."""
+    lanes = []
+    for R, seed in ((50_000, 1), (30_001, 2)):
+        a, d, p, v = hand_rows(R, K, seed=seed)
+        wide = np.random.default_rng(seed).random(R) < 0.3
+        hi = np.random.default_rng(seed + 1).integers(-128, 128, (int(wide.sum()), CHUNK))
+        lanes.append([_t(x).to(cuda) for x in (a, d, hi.astype(np.int8), wide, p, v)])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(3):
+        for i, (st, args) in enumerate(zip(streams, lanes)):
+            with torch.cuda.stream(st):
+                got[i].append(dd.delta_decode_chunked_adaptive(*args))
+    torch.cuda.synchronize()
+    for outs, args in zip(got, lanes):
+        want = dd.delta_decode_chunked_adaptive_plain(*args)
+        assert all(torch.equal(o, want) for o in outs)
+    keys = [k for k in _build._SCRATCH if k[0] == "decode_lookback"]
+    assert {k[2] for k in keys} >= {s.cuda_stream for s in streams}
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_rejects_misaligned_lane(cuda):
+    """A lane whose base is off the 4-delta alignment raises in the decode
+    and in the chunked segment sums (both load a lane's 4 deltas as one
+    word); nothing is copied and nothing falls back."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    a, d, p, v = (_t(x).to(cuda) for x in hand_rows(4, K, seed=5))
+    buf = torch.zeros(4 * CHUNK + 1, dtype=torch.int8, device=cuda)
+    lane = buf[1:].view(4, CHUNK)
+    lane.copy_(d)
+    before = dict(dd.LAUNCHES)
+    with pytest.raises(ValueError):
+        dd.delta_decode_chunked(a, lane, p, v)
+    with pytest.raises(ValueError):
+        sr.segment_sum_sorted_chunked(a, lane, p, v, torch.ones((4 * CHUNK, 1), device=cuda), 8)
+    assert dd.LAUNCHES == before
