@@ -31,6 +31,20 @@ checks every result.  One JSON object per phase goes to stdout:
           once, and the numpy engine on that decode, and both adaptive
           kernels held against their plain versions on the
           last version's own lane (D = 1 and 8);
+  graph_serve
+          ``GraphQueryService`` (max_batch 16, 0.25 s deadlines, tenants
+          alice 3 : bob 1, work-conserving, 10,000-update writer batches)
+          over the stream phase's stream: 24 closed-loop clients (bfs 50%,
+          sssp 20%, pagerank 20%, cc 10%; sources live vertices by a
+          zipf(2.0) rank, examples/serve_graph.py's replay skew), 5 s
+          alone, then 10 s while a writer feeds update batches; per window qps, p50/p99 per kind, batch per flush,
+          deadline misses, writer updates/s; cache hits and promotions;
+          every session answer and
+          one quiet query per kind held against the torch engine on its
+          version; the reference's replay with the cache on and off
+          across a publish, bit-identical; one subscription per kind over
+          two 1% insert publishes, each refresh incremental and equal to
+          a full recompute, timed against it (time-to-fresh);
   compressed_scale
           with the flat scale graph freed, 128 disjoint rMAT
           communities of 2^15 vertices (2^22 vertices,
@@ -443,10 +457,10 @@ def phase_stream() -> dict:
     return launches, stream
 
 
-def stream_kernel_check(eng) -> dict:
+def stream_kernel_check(eng, widths=(1, 8), what: str = "stream") -> dict:
     """The stream's own kernel shapes on its last (weighted) version: the
     engine's ``edge_map_reduce`` (D = 1) and ``edge_map_reduce_batch``
-    (D = 8, the PageRank reset lanes), and the unweighted kernel on the
+    (D > 1, the PageRank reset lanes), and the unweighted kernel on the
     same pool, each held against the plain version of the same reduce."""
     import torch
 
@@ -455,26 +469,26 @@ def stream_kernel_check(eng) -> dict:
 
     a, n = eng.aux, eng.g.n
     if a.w_by_dst is None:
-        raise AssertionError("stream: the weighted batch left the mirror unweighted")
+        raise AssertionError(f"{what}: the weighted batch left the mirror unweighted")
     dev = a.dst_sorted.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    vals = torch.rand((8, n), generator=gen, device=dev)
+    vals = torch.rand((max(widths), n), generator=gen, device=dev)
     msg = tb._reduce_msgs_batch(vals, a.src_by_dst, a.valid_by_dst)
     dst = a.dst_sorted.to(torch.int32).contiguous()
     errs = {}
-    for D in (1, 8):
-        got = eng.edge_map_reduce(vals[0]) if D == 1 else eng.edge_map_reduce_batch(vals)
+    for D in widths:
+        got = eng.edge_map_reduce(vals[0]) if D == 1 else eng.edge_map_reduce_batch(vals[:D])
         want = sr.segment_sum_weighted_sorted_plain(dst, a.w_by_dst, msg[:, :D].contiguous(), n)
         errs[f"segment_sum_weighted_D{D}"] = check_close(
-            got.reshape(-1, n).T, want, f"stream edge_map_reduce D={D}")
+            got.reshape(-1, n).T, want, f"{what} edge_map_reduce D={D}")
         m = msg[:, :D].contiguous()
         errs[f"segment_sum_D{D}"] = check_close(
             sr.segment_sum_sorted(dst, m, n), sr.segment_sum_sorted_plain(dst, m, n),
-            f"stream segment_sum D={D}")
+            f"{what} segment_sum D={D}")
         errs[f"same_bits_D{D}"] = (
-            same_bits(lambda: sr.segment_sum_sorted(dst, m, n), f"stream segment_sum D={D}")
+            same_bits(lambda: sr.segment_sum_sorted(dst, m, n), f"{what} segment_sum D={D}")
             and same_bits(lambda: sr.segment_sum_weighted_sorted(dst, a.w_by_dst, m, n),
-                          f"stream segment_sum_weighted D={D}"))
+                          f"{what} segment_sum_weighted D={D}"))
     return errs
 
 
@@ -1238,6 +1252,368 @@ def compressed_stream_kernel_check(eng) -> dict:
             and same_bits(lambda: chunked_call(s, m, n, a.w_by_dst),
                           f"compressed_stream weighted chunked D={D}"))
     return out
+
+
+# graph_serve: the multi-tenant query service on the stream phase's stream
+SERVE_CLIENTS = 24  # closed-loop client threads, split over the two tenants
+SERVE_QUIET_S = 5.0  # the clients alone, before the writer starts
+SERVE_LOAD_S = 10.0  # the load window: the clients and the writer
+SERVE_MIX = (("bfs", 0.5), ("sssp", 0.2), ("pagerank", 0.2), ("cc", 0.1))
+SERVE_TENANTS = {"alice": 3.0, "bob": 1.0}  # examples/serve_graph.py's tenants
+# source skew: rank r ~ zipf(2.0) picks the r-th live vertex, the skew of
+# examples/serve_graph.py's cache replay (there over all vertex ids)
+SERVE_ZIPF = 2.0
+SERVE_SESSIONS = 8  # sessions opened during the load, two queries each
+SUB_PUBLISHES = 2  # insert publishes of 1% of the edges under the subscriptions
+# the reference's cache-on/off replay (tests/test_result_cache.py REPLAY)
+SERVE_REPLAY = (("bfs", 3), ("sssp", 5), ("bfs", 3), ("cc", None),
+                ("pagerank", None), ("bfs", 3), ("sssp", 5), ("pagerank", None))
+
+
+def answer_on(stream, v, kind: str, src):
+    """What the service must answer for one query on the held version
+    ``v``: ``query_batch``'s dispatch on that version's torch engine (cc:
+    the global labels; pagerank: the one-hot or uniform reset row)."""
+    from repro_torch.core.traversal import algorithms as talg
+
+    eng = stream._engine_for(v, "torch")
+    if kind == "cc":
+        return np.asarray(talg.connected_components(eng), np.int64)
+    if kind == "pagerank":
+        reset = np.zeros((1, eng.n))
+        if src is None:
+            reset[0] = 1.0 / eng.n
+        else:
+            reset[0, src] = 1.0
+        return stream._serve_kind(eng, "pagerank", None, {"resets": reset})[0]
+    return stream._serve_kind(eng, kind, [src], {})[0]
+
+
+def check_answer(got, want, kind: str, what: str) -> float:
+    """bfs, sssp and cc bit-identical; PageRank within the stream phase's
+    PR_RTOL (atol 1e-6 of the largest entry).  Returns max|got - want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: {kind} shape {got.shape}, want {want.shape}")
+    if kind == "pagerank":
+        atol = 1e-6 * float(np.abs(want).max())
+        if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=PR_RTOL, atol=atol)):
+            raise AssertionError(f"{what}: pagerank off by {np.abs(got - want).max()}")
+        return float(np.abs(got - want).max())
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {kind} differs from the torch engine on its version")
+    return 0.0
+
+
+def _pct(xs, q) -> float | None:
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def phase_graph_serve(stream) -> dict:
+    """``GraphQueryService`` over the stream phase's stream (2^18 vertices,
+    ~3.9 M directed edges, weighted): 24 closed-loop clients of two
+    tenants, alone for ``SERVE_QUIET_S`` and then for ``SERVE_LOAD_S``
+    while a writer feeds update batches; then the checks, cache on
+    against off, and the four subscriptions."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import streaming as st
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.serve.graph import KINDS, GraphQueryService
+
+    t_phase = time.perf_counter()
+    out = {"phase": "graph_serve", "clients": SERVE_CLIENTS, "quiet_s": SERVE_QUIET_S,
+           "load_s": SERVE_LOAD_S,
+           "mix": dict(SERVE_MIX), "source_zipf": SERVE_ZIPF, "tenant_weights": SERVE_TENANTS}
+    rng = np.random.default_rng(SEED + 20)
+    batch = 10_000  # the stream phase's update batch
+    deg = stream.engine("torch").degrees.cpu().numpy()
+    live = np.flatnonzero(deg > 0)
+    out.update(n=int(deg.size), m=int(stream.engine("torch").m), live_vertices=int(live.size))
+    # update rows by the paper's §7.3 method over a second rMAT draw at the
+    # stream's size: 90% inserts, 10% deletes (rows already present, or
+    # absent, are no-ops)
+    E1 = rmat_symmetric_device(18, 2_000_000, SEED + 21)
+    _, rows = st.make_update_stream(E1, 6 * batch, seed=SEED + 21)
+
+    kinds = [k for k, _ in SERVE_MIX]
+    probs = [p for _, p in SERVE_MIX]
+    svc = GraphQueryService(stream, max_batch=16, default_deadline_s=0.25,
+                            tenant_weights=SERVE_TENANTS, work_conserving=True,
+                            update_batch=batch)
+    records, sessions, errors = [], [], []
+    rec_lock = threading.Lock()
+    stop = threading.Event()
+
+    def pick(crng, kind):
+        if kind == "cc":
+            return None
+        return int(live[min(crng.zipf(SERVE_ZIPF) - 1, live.size - 1)])
+
+    def client(i: int) -> None:
+        crng = np.random.default_rng(SEED + 100 + i)
+        tenant = "alice" if i % 2 == 0 else "bob"
+        k = 0
+        try:
+            while not stop.is_set():
+                k += 1
+                if k % 8 == 2:  # now and then a pinned session of two queries
+                    with rec_lock:
+                        sess = svc.session(tenant) if len(sessions) < SERVE_SESSIONS else None
+                        answers = []
+                        if sess is not None:
+                            sessions.append((sess, answers))
+                    if sess is not None:
+                        for kind in ("bfs", kinds[1 + crng.integers(3)]):
+                            src = pick(crng, kind)
+                            answers.append((kind, src, sess.query(kind, source=src)
+                                            .result(timeout=120)))
+                        continue
+                kind = kinds[crng.choice(len(kinds), p=probs)]
+                t = svc.submit(kind, source=pick(crng, kind), tenant=tenant)
+                t.result(timeout=120)
+                with rec_lock:
+                    records.append((kind, t.latency_s, t.cached, bool(t.deadline_missed),
+                                    t.t_submit))
+        except Exception as e:  # noqa: BLE001 - surfaced by the main thread
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+            stop.set()
+
+    def feeder() -> None:
+        # a batch goes in whole, and at once (the writer drains it as one),
+        # when the writer has published the last one
+        try:
+            for lo in range(0, rows.shape[0], batch):
+                svc.flush_updates(timeout=300)
+                if stop.is_set():
+                    return
+                svc.updates.put_many(rows[lo:lo + batch])
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"feeder: {type(e).__name__}: {e}")
+            stop.set()
+
+    with svc:
+        sr.reset_launches()
+        t0 = time.perf_counter()
+        svc.warmup()
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        st_start = svc.stats()
+        t_quiet = time.perf_counter()
+        for th in threads:
+            th.start()
+        stop.wait(SERVE_QUIET_S)  # the clients alone
+        st_quiet = svc.stats()
+        t_live = time.perf_counter()
+        threads.append(threading.Thread(target=feeder))
+        threads[-1].start()
+        stop.wait(SERVE_LOAD_S)  # the clients and the writer
+        stop.set()
+        t_end = time.perf_counter()
+        for th in threads:
+            th.join(timeout=300)
+        out["join_s"] = time.perf_counter() - t_end
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"graph_serve: load failed: {errors[:4]}")
+        st_load = svc.stats()
+        t0 = time.perf_counter()
+        svc.flush_updates(timeout=300)
+        svc.flush_promotions(timeout=300)
+        torch.cuda.synchronize()
+        out["flush_after_load_s"] = time.perf_counter() - t0
+        launches = {k: sr.LAUNCHES[k] for k in ("segment_sum", "segment_sum_weighted")}
+        if min(launches.values()) == 0:
+            raise AssertionError(f"graph_serve: a kernel was never launched: {launches}")
+        st_all = svc.stats()
+
+        # sessions opened during the load: every answer from its pinned version
+        t0 = time.perf_counter()
+        sess_err, n_sess_answers = 0.0, 0
+        for sess, answers in sessions:
+            for kind, src, ans in answers:
+                sess_err = max(sess_err, check_answer(
+                    ans, answer_on(stream, sess.version, kind, src), kind, "graph_serve session"))
+                n_sess_answers += 1
+            sess.close(timeout=60)
+        # quiescent: one unpinned query of each kind on the current version
+        quiet_err = 0.0
+        v = stream.acquire()
+        try:
+            for kind in KINDS:
+                src = None if kind == "cc" else int(live[0])
+                got = svc.query(kind, source=src, timeout=120)
+                quiet_err = max(quiet_err, check_answer(
+                    got, answer_on(stream, v, kind, src), kind, "graph_serve quiescent"))
+        finally:
+            stream.release(v)
+        out["checks_s"] = time.perf_counter() - t0
+        cache = st_all["cache"]
+        if (cache["promoted_dropped"] != 0 or cache["promote_errors"] != 0
+                or cache["promoted_incremental"] == 0):
+            raise AssertionError(f"graph_serve: promotions {cache}")
+
+    # latency and throughput of each window, from the tickets submitted in it
+    def window(lo: float, hi: float, st0: dict, st1: dict) -> dict:
+        recs = [r for r in records if lo <= r[4] < hi]
+        span = hi - lo
+        lat = {k: [r[1] for r in recs if r[0] == k] for k in kinds}
+        miss = {k: [r[1] for r in recs if r[0] == k and not r[2]] for k in kinds}
+        lanes = {k: {f: st1["lanes"][k][f] - st0["lanes"][k][f]
+                     for f in ("flushed_requests", "flushed_batches", "full_flushes",
+                               "deadline_flushes", "idle_flushes")} for k in kinds}
+        drained = st1["updates"]["drained"] - st0["updates"]["drained"]
+        return {
+            "at_s": lo - t_phase, "s": span, "answers": len(recs), "qps": len(recs) / span,
+            "qps_by_kind": {k: len(v) / span for k, v in lat.items()},
+            "p50_s": {k: _pct(v, 50) for k, v in lat.items()},
+            "p99_s": {k: _pct(v, 99) for k, v in lat.items()},
+            "miss_p50_s": {k: _pct(v, 50) for k, v in miss.items()},
+            "miss_p99_s": {k: _pct(v, 99) for k, v in miss.items()},
+            "mean_batch_per_flush": {k: v["flushed_requests"] / max(v["flushed_batches"], 1)
+                                     for k, v in lanes.items()},
+            "flushes": {k: {f: v[f] for f in ("full_flushes", "deadline_flushes",
+                                              "idle_flushes")} for k, v in lanes.items()},
+            "deadline_miss_pct": 100.0 * sum(r[3] for r in recs) / max(len(recs), 1),
+            "cache_hit_answers": sum(r[2] for r in recs),
+            "publishes": st1["publishes"] - st0["publishes"],
+            "updates_drained": drained, "writer_updates_per_s": drained / span,
+        }
+
+    out.update(
+        quiet=window(t_quiet, t_live, st_start, st_quiet),
+        live=window(t_live, t_end, st_quiet, st_load),
+        tenants={t: {k: st_all["tenants"][t][k] for k in ("completed", "cached")}
+                 for t in SERVE_TENANTS},
+        cache={k: cache[k] for k in ("hits", "misses", "hit_rate", "evictions",
+                                     "promoted_incremental", "promoted_full", "promoted_dropped",
+                                     "promote_errors")},
+        publishes=st_all["publishes"],
+        live_versions=st_all["live_versions"],
+        sessions=len(sessions), session_answers=n_sess_answers,
+        session_pagerank_max_abs_err=sess_err, quiescent_pagerank_max_abs_err=quiet_err,
+        launches=launches,
+    )
+    if out["live"]["publishes"] == 0:
+        raise AssertionError("graph_serve: the writer published nothing under load")
+    out["cache_on_off"] = serve_cache_on_off(stream)
+    out["subscriptions"] = serve_subscriptions(stream, E1, live, rng)
+    out["kernel_check"] = stream_kernel_check(stream.engine("torch"), (1, 16), "graph_serve")
+    out["launches_phase"] = {k: sr.LAUNCHES[k] for k in launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
+def serve_cache_on_off(stream) -> dict:
+    """The reference's replay through a cache-off and a cache-on service on
+    the same stream, one publish between two rounds: the answers must be
+    bit-identical."""
+    from repro_torch.serve.graph import GraphQueryService
+
+    t0 = time.perf_counter()
+    off = GraphQueryService(stream, max_batch=16, result_cache=False)
+    on = GraphQueryService(stream, max_batch=16, result_cache=True, fastpath=True)
+    got = {False: [], True: []}
+    with off, on:
+        for rnd in range(2):
+            if rnd:
+                on.insert_edges(np.array([[3, 200], [200, 210]]))
+                on.flush_updates(timeout=120)
+                on.flush_promotions(timeout=120)
+            for cache_on, svc in ((False, off), (True, on)):
+                got[cache_on] += [np.asarray(svc.query(kind, source=src, timeout=120))
+                                  for kind, src in SERVE_REPLAY]
+        cache = on.stats()["cache"]
+    for (kind, _), a, b in zip(SERVE_REPLAY * 2, got[False], got[True]):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"graph_serve: {kind} with the cache on differs from off")
+    if cache["hits"] == 0 or cache["promoted_dropped"] != 0 or cache["promote_errors"] != 0:
+        raise AssertionError(f"graph_serve: cache on/off {cache}")
+    return {"answers": len(got[True]), "hits": cache["hits"],
+            "promoted_incremental": cache["promoted_incremental"],
+            "promoted_full": cache["promoted_full"], "s": time.perf_counter() - t0}
+
+
+def serve_subscriptions(stream, E1, live, rng) -> dict:
+    """One subscription per kind, refreshed after each of ``SUB_PUBLISHES``
+    insert publishes of 1% of the edges (new rMAT pairs): each refresh
+    incremental and equal to a full recompute on the same version (a new
+    subscription, whose time is the cold time-to-fresh).  The version's
+    engine is built before both are timed (``engine_s``)."""
+    import torch
+
+    from repro_torch.core.traversal import algorithms as talg
+
+    srcs = rng.choice(live, 4, replace=False)
+    subs = {k: stream.subscribe(k, sources=srcs if k in ("bfs", "sssp") else None)
+            for k in ("bfs", "sssp", "cc", "pagerank")}
+    pairs = E1[E1[:, 0] < E1[:, 1]]
+    k = stream.engine("torch").m // 200  # pairs: 1% of the directed edges
+    fresh = {kind: {"incremental_s": [], "cold_s": []} for kind in subs}
+    pr_rounds = {"incremental": [], "cold": []}
+    publish_s, engine_s, pr_err = [], [], 0.0
+    try:
+        for _ in range(SUB_PUBLISHES):
+            # held until both paths are timed, so that no refresh pays for
+            # collecting the old version (the last one to move would)
+            v_old = stream.acquire()
+            t0 = time.perf_counter()
+            stream.insert_edges(pairs[rng.choice(pairs.shape[0], k, replace=False)])
+            torch.cuda.synchronize()
+            publish_s.append(time.perf_counter() - t0)
+            # the new version's engine and weighted degrees, which both
+            # paths below need, are built outside their timings
+            t0 = time.perf_counter()
+            v = stream.acquire()
+            try:
+                stream._engine_for(v, "torch").weighted_degrees
+            finally:
+                stream.release(v)
+            torch.cuda.synchronize()
+            engine_s.append(time.perf_counter() - t0)
+            for kind, sub in subs.items():
+                r0 = talg.PAGERANK_ROUNDS.count
+                t0 = time.perf_counter()
+                value = sub.refresh()
+                fresh[kind]["incremental_s"].append(time.perf_counter() - t0)
+                r1 = talg.PAGERANK_ROUNDS.count
+                t0 = time.perf_counter()
+                with stream.subscribe(kind, sources=srcs if kind in ("bfs", "sssp") else None) \
+                        as cold:
+                    fresh[kind]["cold_s"].append(time.perf_counter() - t0)
+                    if kind == "pagerank":
+                        pr_rounds["incremental"].append(r1 - r0)
+                        pr_rounds["cold"].append(talg.PAGERANK_ROUNDS.count - r1)
+                    if cold.stamp != sub.stamp:
+                        raise AssertionError("graph_serve: a publish raced the subscriptions")
+                    if kind == "pagerank":
+                        err = float(np.abs(value - cold.value).max())
+                        pr_err = max(pr_err, err)
+                        if not err <= 1e-6:  # DESIGN.md §5
+                            raise AssertionError(f"graph_serve: warm pagerank off by {err}")
+                    elif kind == "bfs":
+                        if not all(np.array_equal(a, b) for a, b in zip(value, cold.value)):
+                            raise AssertionError("graph_serve: incremental bfs differs")
+                    elif not np.array_equal(value, cold.value):
+                        raise AssertionError(f"graph_serve: incremental {kind} differs")
+            stream.release(v_old)
+        counts = {kind: (sub.n_full, sub.n_incremental) for kind, sub in subs.items()}
+    finally:
+        for sub in subs.values():
+            sub.close()
+    if any(n_incr < SUB_PUBLISHES for _, n_incr in counts.values()):
+        raise AssertionError(f"graph_serve: a subscription left the incremental path: {counts}")
+    return {
+        "publish_pairs": int(k), "publish_s": publish_s, "engine_s": engine_s,
+        "n_full_incremental": counts, "pagerank_max_abs_err": pr_err,
+        "pagerank_rounds": pr_rounds,
+        "time_to_fresh_s": {kind: {"incremental": float(np.median(f["incremental_s"])),
+                                   "cold": float(np.median(f["cold_s"]))}
+                            for kind, f in fresh.items()},
+    }
 
 
 def plain_scale_graph_raises(g) -> str:
@@ -2239,6 +2615,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("compressed_kernels", phase_compressed_kernels)
     cstream_launches = run("compressed_stream", phase_compressed_stream, plain_stream)
+    serve_launches = run("graph_serve", phase_graph_serve, plain_stream)
     del plain_stream
     cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
@@ -2269,7 +2646,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_reduce.py:"
                         + ("53" if name == "segment_sum" else "109"),
-            "launches": stream_launches[name] + scale_launches[name],
+            "launches": stream_launches[name] + scale_launches[name] + serve_launches[name],
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],

@@ -1,10 +1,9 @@
 """Aspen streaming interface (paper §6 + §7.3): updates alongside queries.
 
-Counterpart of ``repro/core/streaming.py`` (lines 64-818 and 1013-1155):
-the flat-mirror path.  ``AspenStream`` is a VersionedGraph plus the
-Ligra-style update API.  Updates are functional: each batch produces a
-new version published with SET; readers ACQUIRE snapshots and never
-block.
+Counterpart of ``repro/core/streaming.py``: the flat-mirror path.
+``AspenStream`` is a VersionedGraph plus the Ligra-style update API.
+Updates are functional: each batch produces a new version published
+with SET; readers ACQUIRE snapshots and never block.
 
 Dual representation: alongside the host C-tree ``Graph``, every version
 carries a device-resident ``FlatGraph`` mirror (with ``compressed=True``
@@ -14,11 +13,17 @@ deduped and rank-merged into the mirror on the device, then both are
 published atomically as ONE version.  ``engine("torch")`` over an
 unchanged version is a cache hit (engines are cached on the version),
 and a fresh version's engine costs one ``engine_aux`` over the merged
-mirror.  Every edge publish records its batch as a
-``versioning.Delta``.
+mirror.
 
-Not ported yet (ROADMAP.md queue 1): ``subscribe`` / ``Subscription``
-and the incremental query paths, and the sharded mirror
+Incremental queries: every edge publish records its batch as a
+``versioning.Delta`` in the version's aux, and ``stream.subscribe(kind,
+...)`` returns a ``Subscription`` whose ``refresh()`` advances a
+standing result (pagerank / cc / bfs / sssp) across publishes through
+the delta-aware warm-start path instead of recomputing.  ``on_publish``
+registers listeners the writer calls after each publish (the serving
+layer's promotion trigger).
+
+Not ported yet (ROADMAP.md queue 1 item 12): the sharded mirror
 (``mirror="sharded"``, which raises ``NotImplementedError``).
 """
 from __future__ import annotations
@@ -88,6 +93,33 @@ class UpdateQueue:
                     return False
             self._q.append((int(src), int(dst), bool(delete), weight))
             self._enqueued += 1
+            self._high_water = max(self._high_water, len(self._q))
+            self._cond.notify_all()
+            return True
+
+    def put_many(self, updates, *, block: bool = True,
+                 timeout: Optional[float] = None) -> bool:
+        """Enqueue rows ``(src, dst[, delete[, weight]])`` all at once, so
+        that a drain sees all of them or none (one of at least
+        ``len(updates)`` takes them as one batch).  Waits for room for
+        the whole batch; returns False (and counts each row rejected)
+        when it stays short — at once on ``block=False``, else after
+        ``timeout``.  A batch larger than ``maxsize`` raises."""
+        rows = [(int(r[0]), int(r[1]), bool(r[2]) if len(r) > 2 else False,
+                 None if len(r) < 4 or r[3] is None else float(r[3])) for r in updates]
+        with self._cond:
+            if self.maxsize is not None:
+                if len(rows) > self.maxsize:
+                    raise ValueError(f"{len(rows)} updates exceed the queue's "
+                                     f"maxsize {self.maxsize}")
+                def room() -> bool:
+                    return len(self._q) + len(rows) <= self.maxsize
+
+                if not room() and not (block and self._cond.wait_for(room, timeout=timeout)):
+                    self._rejected += len(rows)
+                    return False
+            self._q.extend(rows)
+            self._enqueued += len(rows)
             self._high_water = max(self._high_water, len(self._q))
             self._cond.notify_all()
             return True
@@ -178,6 +210,35 @@ class AspenStream:
             g0, aux={MIRROR: self._mirror_from_tree(g0)}
         )
         self._wlock = threading.Lock()  # serializes writers (incl. mirror merge)
+        self._publish_listeners: List[Callable[[Version[G.Graph]], None]] = []
+        self._listener_lock = threading.Lock()
+
+    # -- publish notification ----------------------------------------------
+    def on_publish(self, fn: Callable[[Version[G.Graph]], None]) -> Callable[[], None]:
+        """Register a publish listener: ``fn(version)`` is called on the
+        writer's thread after each version becomes current, outside the
+        write lock (so listeners can acquire and query).  Listeners must
+        be fast (set an event, bump a counter), never compute; their
+        exceptions are swallowed so a broken listener cannot take down
+        the writer.  Returns an idempotent unsubscribe callable."""
+        with self._listener_lock:
+            self._publish_listeners.append(fn)
+
+        def unsubscribe() -> None:
+            with self._listener_lock:
+                if fn in self._publish_listeners:
+                    self._publish_listeners.remove(fn)
+
+        return unsubscribe
+
+    def _notify_publish(self, v: Version[G.Graph]) -> None:
+        with self._listener_lock:
+            listeners = list(self._publish_listeners)
+        for fn in listeners:
+            try:
+                fn(v)
+            except Exception:  # noqa: BLE001 - listener bugs never block the writer
+                pass
 
     # -- mirror maintenance -------------------------------------------------
     def _flat_from_tree(self, g: G.Graph) -> fg.FlatGraph:
@@ -261,7 +322,8 @@ class AspenStream:
         ``delta`` riding the version's aux under ``versioning.DELTA``.  A
         held version without a mirror (published through the raw ``vg``
         writer API) gets one rebuilt from the new tree; a compressed
-        mirror that spilled is rebuilt too (``_heal_spill``)."""
+        mirror that spilled is rebuilt too (``_heal_spill``).  Publish
+        listeners run after the write lock is released."""
 
         def txn(v: Version[G.Graph]):
             g2 = tree_fn(v.graph)
@@ -272,7 +334,9 @@ class AspenStream:
             return g2, aux
 
         with self._wlock:
-            return self.vg.update_with_aux(txn)
+            v = self.vg.update_with_aux(txn)
+        self._notify_publish(v)
+        return v
 
     # -- update API (paper Appendix 10.4) ---------------------------------
     def insert_edges(self, edges: np.ndarray, symmetric: bool = True,
@@ -355,8 +419,12 @@ class AspenStream:
         finally:
             self.release(v)
 
+    def _default_backend(self) -> str:
+        return "torch"
+
     def _engine_for(self, v: Version[G.Graph], backend: str):
-        """``engine`` for an already-acquired version."""
+        """``engine`` for an already-acquired version (subscriptions pin
+        their engine to the version they hold, never the current one)."""
         from .traversal import ENGINE_BUILDS, make_engine
 
         key = ("engine", backend)
@@ -372,7 +440,8 @@ class AspenStream:
 
     def query_batch(self, sources=None, kind: str = "bfs", backend: Optional[str] = None, **kw):
         """Serve a coalesced batch of queries against ONE version-pinned
-        engine (the torch engine unless ``backend`` says otherwise).
+        engine (``_default_backend()``, the torch engine, unless
+        ``backend`` says otherwise).
 
         kinds: ``"bfs"`` -> int64[B, n] parent rows; ``"distances"`` ->
         int64[B, n] hop counts; ``"bc"`` -> float[B, n] dependency scores;
@@ -386,7 +455,7 @@ class AspenStream:
             raise ValueError(f"unknown query kind {kind!r}")
         if self._empty_request(kind, sources, kw):
             return []
-        return self._serve_kind(self.engine(backend or "torch"), kind, sources, kw)
+        return self._serve_kind(self.engine(backend or self._default_backend()), kind, sources, kw)
 
     @staticmethod
     def _empty_request(kind: str, sources, kw) -> bool:
@@ -431,11 +500,184 @@ class AspenStream:
                     out.append([])
                     continue
                 if eng is None:
-                    eng = self._engine_for(v, backend or "torch")
+                    eng = self._engine_for(v, backend or self._default_backend())
                 out.append(self._serve_kind(eng, kind, sources, req))
         finally:
             self.release(v)
         return out
+
+    def subscribe(self, kind: str, sources=None, backend: Optional[str] = None,
+                  **params) -> "Subscription":
+        """Open a live subscription: a handle whose ``refresh()`` keeps the
+        result of one standing query (``"pagerank"`` / ``"cc"`` / ``"bfs"``
+        / ``"sssp"``) fresh across publishes through the delta-aware
+        incremental path (see ``Subscription``)."""
+        return Subscription(self, kind, sources=sources, backend=backend, **params)
+
+
+class Subscription:
+    """A standing query kept fresh across publishes.
+
+    The handle holds (acquires) the version its current result was
+    computed against, so that version, its delta record and its cached
+    engines are collected together once the subscription advances past
+    them or closes.  ``refresh()`` compares the held stamp with the
+    writer's current one; when behind, it asks ``vg.delta_between`` for
+    the composed update record and applies the incremental path over the
+    new snapshot:
+
+      pagerank  warm-start power iteration from the previous scores to
+                the same ``tol`` fixed point (valid for any change:
+                damping < 1 gives a unique fixed point);
+      cc        min-label propagation seeded from the delta endpoints
+                (exact; deltas with deletions fall back to full);
+      bfs/sssp  dirty-subtree revalidation seeded into the warm
+                relaxation (exact, see ``algorithms.incremental_bfs`` /
+                ``incremental_sssp``).
+
+    A broken delta chain (a hop collected before this subscriber caught
+    up, or a version published without a delta record) turns that one
+    refresh into a full recompute, never a wrong answer.  ``n_full`` /
+    ``n_incremental`` count which path each refresh took.  Thread-safe;
+    at most one refresh runs at a time."""
+
+    KINDS = ("pagerank", "cc", "bfs", "sssp")
+
+    def __init__(
+        self,
+        stream: AspenStream,
+        kind: str,
+        sources=None,
+        backend: Optional[str] = None,
+        damping: float = 0.85,
+        tol: float = 1e-6,
+        max_iters: int = 200,
+    ):
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown subscription kind {kind!r}")
+        if kind in ("bfs", "sssp"):
+            if sources is None:
+                raise ValueError(f"{kind!r} subscriptions need sources")
+            self._sources = np.asarray(sources, dtype=np.int64).reshape(-1)
+        else:
+            self._sources = None
+        self._stream = stream
+        self.kind = kind
+        self._backend = backend
+        self._damping, self._tol, self._max_iters = damping, tol, max_iters
+        self._lock = threading.Lock()
+        self.n_full = 0
+        self.n_incremental = 0
+        self._closed = False
+        self._v = stream.acquire()
+        try:
+            self._recompute(self._v)
+        except BaseException:
+            stream.release(self._v)
+            raise
+
+    @property
+    def stamp(self) -> int:
+        """The version stamp the current result reflects."""
+        return self._v.stamp
+
+    @property
+    def value(self):
+        """The current result, as of ``stamp`` (no refresh): pagerank ->
+        scores (n,); cc -> labels (n,); bfs -> (parents, depths)
+        int64[B, n]; sssp -> distances float64[B, n]."""
+        if self.kind == "pagerank":
+            return self._scores
+        if self.kind == "cc":
+            return self._labels
+        if self.kind == "bfs":
+            return self._parents, self._depths
+        return self._dist
+
+    def _engine(self, v: Version[G.Graph]):
+        return self._stream._engine_for(v, self._backend or self._stream._default_backend())
+
+    def _recompute(self, v: Version[G.Graph]) -> None:
+        from .traversal import algorithms as talg
+
+        eng = self._engine(v)
+        if self.kind == "pagerank":
+            self._scores = talg.pagerank(
+                eng, damping=self._damping, tol=self._tol, max_iters=self._max_iters
+            )
+        elif self.kind == "cc":
+            self._labels = np.asarray(talg.connected_components(eng), np.int64)
+        elif self.kind == "bfs":
+            parents, depths = talg.bfs_multi(eng, self._sources)
+            self._parents = np.asarray(parents, np.int64)
+            self._depths = np.asarray(depths, np.int64)
+        else:
+            self._dist = np.asarray(talg.sssp_multi(eng, self._sources), np.float64)
+            # the shortest-path-tree parents are the state the next
+            # delta's dirty-subtree computation needs
+            self._tree = talg.shortest_path_parents(eng, self._dist, self._sources)
+        self.n_full += 1
+
+    def _advance(self, v: Version[G.Graph], delta: Optional[Delta]) -> None:
+        from .traversal import algorithms as talg
+
+        if self.kind == "pagerank":
+            self._scores = talg.pagerank(
+                self._engine(v), damping=self._damping, tol=self._tol,
+                max_iters=self._max_iters, init=self._scores,
+            )
+            self.n_incremental += 1
+            return
+        if delta is None or (self.kind == "cc" and delta.has_deletions):
+            self._recompute(v)
+            return
+        eng = self._engine(v)
+        if self.kind == "cc":
+            self._labels = np.asarray(
+                talg.incremental_connected_components(eng, self._labels, delta), np.int64
+            )
+        elif self.kind == "bfs":
+            self._parents, self._depths = talg.incremental_bfs(
+                eng, self._sources, self._parents, self._depths, delta
+            )
+        else:
+            self._dist = talg.incremental_sssp(eng, self._sources, self._dist, self._tree, delta)
+            self._tree = talg.shortest_path_parents(eng, self._dist, self._sources)
+        self.n_incremental += 1
+
+    def refresh(self):
+        """Bring the result up to the writer's current version (a no-op
+        when already fresh) and return it."""
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("subscription is closed")
+            cur = self._stream.acquire()
+            if cur.stamp == self._v.stamp:
+                self._stream.release(cur)
+                return self.value
+            try:
+                self._advance(cur, self._stream.vg.delta_between(self._v, cur))
+            except BaseException:
+                self._stream.release(cur)
+                raise
+            old, self._v = self._v, cur
+            self._stream.release(old)
+            return self.value
+
+    def close(self) -> None:
+        """Release the pinned version (idempotent); it and its delta record
+        and cached engines become collectible once no other reader holds
+        it."""
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self._stream.release(self._v)
+
+    def __enter__(self) -> "Subscription":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class ConcurrentStats(NamedTuple):

@@ -21,6 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Any, Callable
 
 import torch
 
@@ -160,6 +161,27 @@ def launch(name: str, fn_name: str, args: list, device: torch.device) -> None:
     args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     call(fn, fn_name, args, device.index if device.index is not None
          else torch.cuda.current_device())
+
+
+# ctypes releases the interpreter lock during a C call, so host threads
+# that share a stream (the graph service's executor, promotion and writer
+# threads) could interleave two calls' launches on it: the second call's
+# pass would overwrite the scratch that the first call's fix-up then
+# reads.  ``launch_with_scratch`` holds this lock across a whole call.
+_SCRATCH_LOCK = threading.Lock()
+
+
+def launch_with_scratch(launches: Callable[[], Any], counts: dict, *keys: str) -> Any:
+    """The rule for a call that uses per-stream state (a ``scratch``
+    buffer, a look-back epoch): ``launches()`` fetches that state and
+    makes the call's CUDA launches, then ``counts[key]`` goes up by one
+    for each of ``keys``, all under one lock.  Returns what ``launches``
+    returns."""
+    with _SCRATCH_LOCK:
+        out = launches()
+        for key in keys:
+            counts[key] += 1
+    return out
 
 
 # (tag, device index, stream) -> a buffer that calls on that stream reuse

@@ -121,17 +121,20 @@ def block_spmm(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) 
     nr, nc = tile_mask.shape
     n_x, D = x.shape
     dev = x.device.index
-    work = _build.scratch("block_spmm", x.device, workspace_bytes(nr, nc)).data_ptr()
-    # the compaction runs while the output is allocated
-    _build.call(_build.c_function("block_spmm", "repro_block_spmm_compact", _COMPACT),
-                "repro_block_spmm_compact",
-                [tile_mask.data_ptr(), a_tiles.data_ptr(), work, nr, nc], dev)
-    out = torch.empty((nr * ROW_TILE, D), dtype=torch.float32, device=x.device)
-    _build.call(_build.c_function("block_spmm", "repro_block_spmm_gather", _GATHER),
-                "repro_block_spmm_gather",
-                [tile_mask.data_ptr(), work, x.data_ptr(), out.data_ptr(), nr, nc, n_x, D], dev)
-    LAUNCHES["block_spmm"] += 1
-    return out
+    def launches() -> torch.Tensor:
+        work = _build.scratch("block_spmm", x.device, workspace_bytes(nr, nc)).data_ptr()
+        # the compaction runs while the output is allocated
+        _build.call(_build.c_function("block_spmm", "repro_block_spmm_compact", _COMPACT),
+                    "repro_block_spmm_compact",
+                    [tile_mask.data_ptr(), a_tiles.data_ptr(), work, nr, nc], dev)
+        out = torch.empty((nr * ROW_TILE, D), dtype=torch.float32, device=x.device)
+        _build.call(_build.c_function("block_spmm", "repro_block_spmm_gather", _GATHER),
+                    "repro_block_spmm_gather",
+                    [tile_mask.data_ptr(), work, x.data_ptr(), out.data_ptr(), nr, nc, n_x, D],
+                    dev)
+        return out
+
+    return _build.launch_with_scratch(launches, LAUNCHES, "block_spmm")
 
 
 def tiles_from_edges(n: int, src, dst, vals=None):

@@ -243,6 +243,10 @@ def delta_decode_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ovf_add) -
     out = torch.empty(tuple(deltas.shape), dtype=torch.int32, device=deltas.device)
     if R == 0:
         return out
-    return _launch("repro_delta_decode_chunked_adaptive", "delta_decode_chunked_adaptive",
-                   [anchors, deltas, hi, wide, ctypes.c_int(hi.shape[0]), ovf_pos, ovf_add, out,
-                    ctypes.c_longlong(R), ctypes.c_int(K), *_lookback(R, out.device)], out)
+    args = [anchors, deltas, hi, wide, ctypes.c_int(hi.shape[0]), ovf_pos, ovf_add, out,
+            ctypes.c_longlong(R), ctypes.c_int(K)]
+    _build.launch_with_scratch(  # the epoch and this stream's look-back buffer
+        lambda: _build.launch("delta_decode", "repro_delta_decode_chunked_adaptive",
+                              args + _lookback(R, out.device), out.device),
+        LAUNCHES, "delta_decode_chunked_adaptive")
+    return out

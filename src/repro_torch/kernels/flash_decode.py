@@ -176,16 +176,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Te
     if lens.dtype != torch.int32 or not lens.is_contiguous():
         lens = lens.to(torch.int32).contiguous()
     n_split, chunk = _plan(BH, S, Q, d, kv_bf16, tma, dev)[:2]
-    counters = _build.scratch("flash_counters", dev, 4 * BH, zeroed=True)
-    work = _build.scratch("flash_partials", dev, 4 * workspace_floats(BH, n_split, Q, d))
     out = torch.empty_like(q)
     fn = _build.c_function("flash_decode", "repro_flash_decode", _ARGTYPES)
-    _build.call(fn, "repro_flash_decode",
-                [q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
-                 kv_bf16, lens.data_ptr(), out.data_ptr(), work.data_ptr(), counters.data_ptr(),
-                 B, n_kv, S, Q, d, *kstrides, *vstrides, n_split, chunk, tma], dev.index)
-    LAUNCHES["flash_decode"] += 1
-    LAUNCHES["flash_decode_tma" if tma else "flash_decode_cpasync"] += 1
+
+    def launches() -> None:
+        counters = _build.scratch("flash_counters", dev, 4 * BH, zeroed=True)
+        work = _build.scratch("flash_partials", dev, 4 * workspace_floats(BH, n_split, Q, d))
+        _build.call(fn, "repro_flash_decode",
+                    [q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
+                     kv_bf16, lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+                     counters.data_ptr(), B, n_kv, S, Q, d, *kstrides, *vstrides, n_split,
+                     chunk, tma], dev.index)
+
+    _build.launch_with_scratch(launches, LAUNCHES, "flash_decode",
+                               "flash_decode_tma" if tma else "flash_decode_cpasync")
     return out
 
 

@@ -102,10 +102,12 @@ def segment_sum_weighted_sorted_plain(
 def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int) -> torch.Tensor:
     E, D = msg.shape
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
-    args = [dst] + ([] if w is None else [w]) + [msg, out, _scratch(E, D, msg.device)]
-    args += [ctypes.c_longlong(E), ctypes.c_int(D), ctypes.c_int(n_out)]
-    _build.launch("segment_reduce", fn_name, args, msg.device)
-    LAUNCHES[counter] += 1
+    head = [dst] + ([] if w is None else [w]) + [msg, out]
+    tail = [ctypes.c_longlong(E), ctypes.c_int(D), ctypes.c_int(n_out)]
+    _build.launch_with_scratch(
+        lambda: _build.launch("segment_reduce", fn_name,
+                              head + [_scratch(E, D, msg.device)] + tail, msg.device),
+        LAUNCHES, counter)
     return out
 
 
@@ -206,10 +208,12 @@ def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) 
     else:
         args += [ctypes.c_int(deltas.element_size())]
     args += [ovf_pos, ovf_add] + ([w] if weighted else [])
-    args += [msg, out, _scratch(R * cz.CHUNK, D, msg.device)]
-    args += [ctypes.c_longlong(R), ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(n_out)]
-    _build.launch("segment_reduce", fn_name, args, msg.device)
-    LAUNCHES[counter] += 1
+    args += [msg, out]
+    tail = [ctypes.c_longlong(R), ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(n_out)]
+    _build.launch_with_scratch(
+        lambda: _build.launch("segment_reduce", fn_name,
+                              args + [_scratch(R * cz.CHUNK, D, msg.device)] + tail, msg.device),
+        LAUNCHES, counter)
     return out
 
 
