@@ -69,7 +69,33 @@ checks every result.  One JSON object per phase goes to stdout:
   scale_decode
           the padded kernel on the scale phase's pool dst lane cut into
           128-slot rows (67 M real ids), against its plain version and
-          ``torch.cumsum``.
+          ``torch.cumsum``;
+  sharded_scale
+          the scale pool split into 8 range-sharded rows on the card
+          (``sharded_graph_of_flat``): ``ShardedEngine`` plain and with
+          integer weights, BFS x16 parents and depths, CC labels and SSSP
+          x4 bit-identical to the flat ``TorchEngine``, PageRank (plain,
+          x8 lanes, weighted) within atol 1e-6 and BC x4 within rtol
+          1e-4, the float reduces in both launch shapes (per shard, the
+          default, and one launch over shard-offset keys), each
+          collective's operand held below a quarter of the pool, and rows
+          1-2 at both shapes against their plain versions;
+  sharded_stream
+          ``AspenStream(mirror="sharded", n_shards=8)`` from the stream
+          phase's current tree; four publishes applied to it and to the
+          flat stream (a 10,000-pair insert, a delete, 0.56 M out-edges of
+          64 vertices that overflow a shard's slack so the capacity
+          policy rebalances, and a delete of every 64th of them), each
+          followed by the shard lanes against the flat mirror's edges and
+          weights and ``query_batch`` (bfs, sssp) against the flat engine;
+          then ``shard_stats()``;
+  sharded_compressed
+          the compressed_scale communities drawn again, split into 8 rows
+          and compressed per row (adaptive and int16 layouts, plain and
+          weighted): ``CompressedShardedEngine`` held against the raw
+          sharded engine with the same checks, then rows 3-6 at both
+          launch shapes and rows 8-9 on the source lane against their
+          plain versions.
 
   gnn_kernels
           the fanout and block SpMM kernels against their plain versions:
@@ -1797,6 +1823,478 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# sharded phases: the range-sharded pool and its engines (8 shard rows on
+# the card), held against the flat engines on the same edges
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+SHARD_STREAM_BATCH = 10_000  # pairs per symmetric insert publish of the sharded stream
+
+
+def int_weights(g):
+    """Integer weights in 1..7, equal on (u, v) and (v, u), 0 on pad
+    slots: SSSP over them is exact in float32 on every engine."""
+    import torch
+
+    src, dst = g.keys >> 32, g.keys & 0xFFFFFFFF
+    w = ((torch.minimum(src, dst) * 1000003 + torch.maximum(src, dst)) % 7 + 1).float()
+    return w * (torch.arange(g.edge_capacity, device=g.device) < g.m)
+
+
+def offset_keys(seg, n: int):
+    """A per-row ascending int32[S, cap] segment key as the one-launch
+    shape's shard-offset keys ``s * (n + 1) + key``, flattened."""
+    import torch
+
+    S = seg.shape[0]
+    shift = torch.arange(S, device=seg.device, dtype=torch.int32) * (n + 1)
+    return (seg + shift[:, None]).reshape(-1).contiguous()
+
+
+def timed_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+# PageRank's largest error relative to each entry: at 2^22 vertices a
+# mean entry is 1/n ~ 2.4e-7, so atol 1e-6 alone checks only the hubs;
+# the sharded engines measured 3.5e-7 to 4.9e-7 (H100 80GB HBM3, 700 W)
+PAGERANK_RTOL = 1e-4
+
+
+def check_pagerank(got, want, what: str) -> float:
+    """PageRank against the flat engine: atol 1e-6 (DESIGN.md §5) and, per
+    entry, ``PAGERANK_RTOL`` of the entry (floored at 1e-6 of the largest);
+    returns that largest relative error."""
+    if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=0, atol=1e-6)):
+        raise AssertionError(f"{what}: off by {np.abs(got - want).max()}")
+    floor = 1e-6 * float(np.abs(want).max())
+    rel = float((np.abs(got - want) / np.maximum(np.abs(want), floor)).max())
+    if rel > PAGERANK_RTOL:
+        raise AssertionError(f"{what}: an entry is off by {rel} of itself")
+    return rel
+
+
+def check_bc(got, want, what: str) -> float:
+    """BC dependencies against the flat engine: float32 sums in another
+    order, so rtol 1e-4 with atol 1e-4 * max|want| (the scores reach 1e6
+    here; the port's BC tolerance)."""
+    atol = 1e-4 * max(float(np.abs(want).max()), 1.0)
+    if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=1e-4, atol=atol)):
+        raise AssertionError(f"{what}: off by {np.abs(got - want).max()}")
+    return float(np.abs(got - want).max())
+
+
+def sharded_queries(eng, eng_w, srcs, resets, ref, tag: str):
+    """The phase's queries on one pair of sharded engines (plain,
+    weighted), each answer held against ``ref`` (the flat engines' or the
+    raw sharded engines')."""
+    import torch
+
+    from repro_torch.core.traversal import algorithms as talg
+
+    res = {}
+    (par, dep), res["bfs_batch16_s"] = timed_s(lambda: eng.bfs_batch(srcs))
+    if not (torch.equal(par, ref["bfs"][0]) and torch.equal(dep, ref["bfs"][1])):
+        raise AssertionError(f"{tag}: bfs parents or depths differ")
+    res["max_depth"] = int(dep.max())
+    cc, res["cc_s"] = timed_s(lambda: talg.connected_components(eng))
+    if not np.array_equal(cc, ref["cc"]):
+        raise AssertionError(f"{tag}: cc labels differ")
+    dist, res["sssp_batch4_s"] = timed_s(lambda: eng_w.sssp_batch(srcs[:4]))
+    if not torch.equal(dist, ref["sssp"]):
+        raise AssertionError(f"{tag}: integer-weight sssp differs")
+    pr, res["pagerank10_s"] = timed_s(lambda: talg.pagerank(eng, iters=10))
+    res["pagerank_max_rel_err"] = check_pagerank(pr, ref["pr"], f"{tag} pagerank")
+    prm, res["pagerank_multi8_s"] = timed_s(lambda: talg.pagerank_multi(eng, resets, iters=10))
+    res["pagerank_multi_max_rel_err"] = check_pagerank(prm, ref["prm"], f"{tag} multi")
+    wpr, res["weighted_pagerank10_s"] = timed_s(lambda: talg.weighted_pagerank(eng_w, iters=10))
+    res["weighted_pagerank_max_rel_err"] = check_pagerank(wpr, ref["wpr"],
+                                                          f"{tag} weighted pagerank")
+    bc, res["bc_batch4_s"] = timed_s(lambda: eng.bc_batch(srcs[:4]).cpu().numpy())
+    res["bc_max_abs_err"] = check_bc(bc, ref["bc"], f"{tag} bc")
+    return res
+
+
+def offset_reduce(eng, values_b):
+    """A raw ``ShardedEngine``'s ``edge_map_reduce_batch`` in the launch
+    shape the engine does not take: ONE segment-sum call over every row
+    under shard-offset keys ``s * (n + 1) + v``, then the sum over the
+    shard axis.  Timed beside the engine's per-shard launches."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    a, n, S = eng.aux, eng.n, eng.n_shards
+    sbd = a.src_by_dst.reshape(-1).long()
+    msg = torch.where(a.valid_by_dst.reshape(-1)[None, :], values_b[:, sbd], 0)
+    msg = msg.T.float().contiguous()
+    key = offset_keys(a.dst_sorted, n)
+    if a.w_by_dst is None:
+        out = kops.segment_sum(key, msg, S * (n + 1))
+    else:
+        out = kops.segment_sum_weighted(key, a.w_by_dst.reshape(-1).contiguous(), msg,
+                                        S * (n + 1))
+    return out.view(S, n + 1, -1)[:, :n].sum(0).T
+
+
+def reduce_ms(eng, eng_w, resets, offset: bool) -> dict:
+    """``edge_map_reduce_batch`` (plain and weighted) at D = 1 and 8,
+    CUDA-event timed and uncounted: the reduce alone, without PageRank's
+    host loop.  With ``offset`` (raw engines), also ``offset_reduce``,
+    held to the engine's answer first."""
+    import torch
+
+    out = {}
+    for D in (1, 8):
+        vals = torch.as_tensor(resets[:D], dtype=torch.float32, device="cuda")
+        for tag, e in (("plain", eng), ("weighted", eng_w)):
+            out[f"{tag}_D{D}_per_shard"] = time_uncounted(
+                lambda: e.edge_map_reduce_batch(vals), lambda f: time_ms(f, reps=10))
+            if offset:
+                check_close(offset_reduce(e, vals), e.edge_map_reduce_batch(vals),
+                            f"offset-shape reduce {tag} D={D}")
+                out[f"{tag}_D{D}_offset"] = time_uncounted(
+                    lambda: offset_reduce(e, vals), lambda f: time_ms(f, reps=10))
+    return out
+
+
+def reference_answers(eng, eng_w, srcs, resets) -> dict:
+    """The answers ``sharded_queries`` holds an engine pair to."""
+    from repro_torch.core.traversal import algorithms as talg
+
+    return {
+        "bfs": eng.bfs_batch(srcs),
+        "cc": talg.connected_components(eng),
+        "sssp": eng_w.sssp_batch(srcs[:4]),
+        "pr": talg.pagerank(eng, iters=10),
+        "prm": talg.pagerank_multi(eng, resets, iters=10),
+        "wpr": talg.weighted_pagerank(eng_w, iters=10),
+        "bc": eng.bc_batch(srcs[:4]).cpu().numpy(),
+    }
+
+
+def sharded_kernel_cases(eng, eng_w, gen, what: str) -> list:
+    """Rows 1-2 at the sharded reduce's two launch shapes: the per-shard
+    launch of row 0 (its live dst-major lanes, keys relative to its range,
+    the engine's) and the one launch over all rows under shard-offset keys
+    (n_out = S * (n + 1)); D = 1 and 8, against the plain version, twice
+    to the same bits, timed beside ``torch.segment_reduce`` over the key's
+    offsets (row 1) and a CSR product (row 2)."""
+    import torch
+
+    from repro_torch.kernels import segment_reduce as sr
+
+    a, n = eng.aux, eng.n
+    L, lo, hi = eng._rows["dst"][0]
+    shapes = {  # key, n_out, weights, live lanes (the engine's messages are 0 elsewhere)
+        "per_shard": ((a.dst_sorted[0, :L] - lo).contiguous(), hi - lo + 1,
+                      eng_w.aux.w_by_dst[0, :L].contiguous(), a.valid_by_dst[0, :L]),
+        "offset": (offset_keys(a.dst_sorted, n), eng.n_shards * (n + 1),
+                   eng_w.aux.w_by_dst.reshape(-1).contiguous(), a.valid_by_dst.reshape(-1)),
+    }
+    cases = []
+    for shape, (key, n_out, w, live) in shapes.items():
+        e_valid = int(live.sum())
+        offs = torch.searchsorted(key, torch.arange(n_out + 1, device="cuda", dtype=torch.int32))
+        cols = torch.arange(key.shape[0], device="cuda")
+        csr_w = torch.sparse_csr_tensor(offs, cols, w, size=(n_out, key.shape[0]))
+        for D in (1, 8):
+            msg = torch.rand((key.shape[0], D), generator=gen, device="cuda") * live[:, None]
+            for name, weighted in (("segment_sum", False), ("segment_sum_weighted", True)):
+                if weighted:
+                    kern = lambda: sr.segment_sum_weighted_sorted(key, w, msg, n_out)  # noqa: E731
+                    plain = lambda: sr.segment_sum_weighted_sorted_plain(key, w, msg, n_out)  # noqa: E731
+                    lib = lambda: torch.sparse.mm(csr_w, msg)  # noqa: E731
+                else:
+                    kern = lambda: sr.segment_sum_sorted(key, msg, n_out)  # noqa: E731
+                    plain = lambda: sr.segment_sum_sorted_plain(key, msg, n_out)  # noqa: E731
+                    lib = lambda: torch.segment_reduce(msg, "sum", offsets=offs.long(),  # noqa: E731
+                                                       axis=0)
+                err = check_close(kern(), plain(), f"{what} {shape} {name} D={D}")
+                check_close(lib(), plain(), f"{what} {shape} {name} D={D} library")
+                bound_ms, bound_by = bound(e_valid, n_out, D, weighted)
+                cases.append({
+                    "name": name, "shape": shape, "D": D, "E": int(key.shape[0]),
+                    "E_valid": e_valid, "n_out": n_out, "max_abs_err": err,
+                    "same_bits": same_bits(kern, f"{what} {shape} {name} D={D}"),
+                    "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
+                    "plain_ms": time_ms(plain, reps=3), "library_ms": time_ms(lib, reps=3),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+    return cases
+
+
+def phase_sharded_scale(g, aux) -> tuple:
+    """The raw sharded engine at the scale phase's size (2^22 vertices,
+    66 M directed edges), ``SHARDS`` rows made from the flat pool on the
+    card, held against the flat ``TorchEngine`` on the same pool."""
+    import torch
+
+    from repro_torch.core.traversal import ShardedEngine, sharded_graph_of_flat
+    from repro_torch.core.traversal import sharded_backend as sb
+    from repro_torch.core.traversal import torch_backend as tb
+    from repro_torch.kernels import segment_reduce as sr
+
+    t_phase = time.perf_counter()
+    n, m = g.n, int(g.m)
+    out = {"phase": "sharded_scale", "n": n, "m": m, "n_shards": SHARDS,
+           "flat_edge_capacity": g.edge_capacity}
+    rng = np.random.default_rng(SEED + 21)
+    srcs = rng.choice(np.flatnonzero(aux.degrees.cpu().numpy() > 0), 16, replace=False)
+    resets = rng.random((8, n))
+    resets /= resets.sum(1, keepdims=True)
+    gw = g._replace(weights=int_weights(g))
+    flat, flat_w = tb.TorchEngine(g, aux=aux), tb.TorchEngine(gw)
+    ref, out["flat_answers_s"] = timed_s(lambda: reference_answers(flat, flat_w, srcs, resets))
+    out["flat_resident_bytes_per_edge"] = flat.resident_nbytes / m
+    del flat_w
+
+    sr.reset_launches()
+    sg, out["sharded_graph_of_flat_s"] = timed_s(lambda: sharded_graph_of_flat(g, SHARDS))
+    sgw = sg._replace(pool=sg.pool._replace(vals=sharded_graph_of_flat(gw, SHARDS).pool.vals))
+    del gw
+    eng, out["shard_aux_s"] = timed_s(lambda: ShardedEngine(sg))
+    eng_w = ShardedEngine(sgw)
+    out["cap_per"] = sg.pool.cap_per
+    out["shard_counts"] = sg.pool.n.tolist()
+    out["resident_bytes_per_edge"] = eng.resident_nbytes / m
+    with sb.collective_log() as log:
+        out.update(sharded_queries(eng, eng_w, srcs, resets, ref, "sharded_scale"))
+    launches = dict(sr.LAUNCHES)
+    for k in ("segment_sum", "segment_sum_weighted"):
+        if launches[k] == 0:
+            raise AssertionError(f"sharded_scale: {k} was never launched: {launches}")
+    out["launches"] = launches
+    out["collectives"] = {"count": len(log), "max_operand_bytes": max(b for _, b in log),
+                          "pool_bytes": sg.pool.data.numel() * 8}
+    if out["collectives"]["max_operand_bytes"] * 4 > out["collectives"]["pool_bytes"]:
+        raise AssertionError("sharded_scale: a collective moved a pool-sized operand")
+    out["reduce_ms"] = reduce_ms(eng, eng_w, resets, offset=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    out["kernels"], out["kernel_checks_s"] = timed_s(
+        lambda: sharded_kernel_cases(eng, eng_w, gen, "sharded_scale"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches, out["kernels"]
+
+
+def phase_sharded_compressed() -> tuple:
+    """``CompressedShardedEngine`` on the compressed_scale phase's rMAT
+    communities (2^22 vertices, ~63 M edges, drawn again on the card) in
+    the adaptive and the int16 layout, plain and weighted, held against
+    the raw sharded engines on the same edges; then rows 3-6 on the
+    one-launch shape of each layout's dst lane and rows 8-9 on its source
+    lane, against their plain versions."""
+    import torch
+
+    from repro_torch.core import compressed as cz
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.core import sharded_pool as sp
+    from repro_torch.core.traversal import (CompressedShardedEngine, ShardedEngine,
+                                            sharded_graph_of_flat)
+    from repro_torch.kernels import delta_decode as dd
+    from repro_torch.kernels import segment_reduce as sr
+
+    t_phase = time.perf_counter()
+    log_c, n_comm = 15, 128
+    n = n_comm << log_c
+    edges = rmat_symmetric_device(log_c, 2**25, seed=4, communities=n_comm)
+    g = fg.from_edges(n, edges, device="cuda")
+    del edges
+    m = int(g.m)
+    out = {"phase": "sharded_compressed", "n": n, "m": m, "n_shards": SHARDS}
+    rng = np.random.default_rng(SEED + 22)
+    srcs = rng.choice(np.flatnonzero(torch.diff(g.offsets).cpu().numpy() > 0), 16, replace=False)
+    resets = rng.random((8, n))
+    resets /= resets.sum(1, keepdims=True)
+    sg = sharded_graph_of_flat(g, SHARDS)
+    sgw = sharded_graph_of_flat(g._replace(weights=int_weights(g)), SHARDS)
+    del g
+    raw, raw_w = ShardedEngine(sg), ShardedEngine(sgw)
+    ref, out["raw_answers_s"] = timed_s(lambda: reference_answers(raw, raw_w, srcs, resets))
+    out["raw_resident_bytes_per_edge"] = raw.resident_nbytes / m
+    del raw, raw_w
+    torch.cuda.empty_cache()
+
+    sr.reset_launches()
+    dd.reset_launches()
+    layouts, lanes = {}, {}
+    for name, kw in (("adaptive", {}), ("fixed2", {"width": 2})):
+        res = {}
+        (csg, csgw), res["compress_s"] = timed_s(
+            lambda: (sp.compress_sharded(sg, **kw), sp.compress_sharded(sgw, **kw)))
+        res["dst_bytes_per_edge"] = cz.stream_nbytes(csg.pool.dst) / m
+        (eng, eng_w), res["engine_s"] = timed_s(
+            lambda: (CompressedShardedEngine(csg), CompressedShardedEngine(csgw)))
+        res["resident_bytes_per_edge"] = eng.resident_nbytes / m
+        res.update(sharded_queries(eng, eng_w, srcs, resets, ref, f"sharded_compressed {name}"))
+        res["reduce_ms"] = reduce_ms(eng, eng_w, resets, offset=False)
+        layouts[name] = res
+        lanes[name] = (eng.caux, eng_w.caux.w_by_dst, eng._rows["dst"][0], eng._width)
+        del eng, eng_w, csg, csgw
+        torch.cuda.empty_cache()
+    launches = {**sr.LAUNCHES, **dd.LAUNCHES}
+    for k in CHUNKED_KERNELS + DECODE_KERNELS[:2]:
+        if launches[k] == 0:
+            raise AssertionError(f"sharded_compressed: {k} was never launched: {launches}")
+    out.update(layouts=layouts, launches=launches)
+
+    # the kernels at these shapes, uncounted: rows 3-6 on the dst lane in
+    # both launch shapes (row 0's live chunks keyed from its range, the
+    # engine's; all rows under shard-offset anchors), rows 8-9 on the
+    # source lane
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    shift = torch.arange(SHARDS, device="cuda", dtype=torch.int32) * (n + 1)
+    cases, decode_cases = [], []
+    for name, (caux, w_rows, (L, lo, hi), width) in lanes.items():
+        f = caux.dst_sorted_c
+        R = -(-L // cz.CHUNK)
+        cap = width  # the engine's live width: the fullest row's chunks
+        pre = cz.row_prefix(f, cap // cz.CHUNK)
+        shapes = {  # stream, n_out, weights, live lanes
+            "per_shard": (cz.ChunkedStream(f.anchors[0, :R] - lo, f.deltas[0, :R],
+                                           f.ovf_pos[0, :R], f.ovf_add[0, :R], f.spill[0],
+                                           None if f.hi is None else f.hi[0],
+                                           None if f.wide is None else f.wide[0, :R]),
+                          hi - lo + 1, w_rows[0, :R * cz.CHUNK].contiguous(),
+                          torch.arange(R * cz.CHUNK, device="cuda") < L),
+            "offset": (cz.flatten_rows(pre._replace(anchors=pre.anchors + shift[:, None])),
+                       SHARDS * (n + 1), w_rows[:, :cap].reshape(-1).contiguous(),
+                       (torch.arange(cap, device="cuda")[None, :] < caux.m_valid[:, None])
+                       .reshape(-1)),
+        }
+        for shape, (s, n_out, w_all, live) in shapes.items():
+            e_valid = int(live.sum())
+            for weighted in (False, True):
+                w = w_all if weighted else None
+                for D in (1, 8):
+                    # pad lanes carry 0, as the engine's masked messages do
+                    msg = torch.rand((s.length, D), generator=gen, device="cuda") * live[:, None]
+                    kern = lambda: chunked_call(s, msg, n_out, w)  # noqa: E731
+                    plain = lambda: chunked_call(s, msg, n_out, w, plain=True)  # noqa: E731
+                    what = f"sharded_compressed {name} {shape} D={D}"
+                    err = check_close(kern(), plain(), what)
+                    bound_ms, bound_by = chunked_bound(s, e_valid, n_out, D, weighted)
+                    cases.append({
+                        "name": chunked_name(s, weighted), "layout": name, "shape": shape,
+                        "D": D, "R": s.deltas.shape[0], "E_valid": e_valid, "n_out": n_out,
+                        "max_abs_err": err, "same_bits": same_bits(kern, what),
+                        "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
+                        "plain_ms": time_ms(plain, reps=3), "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None,
+                    })
+        s = cz.flatten_rows(cz.row_prefix(caux.srcbd_c, cap // cz.CHUNK))  # as the reduce reads it
+        kern, plain = decode_calls(s)
+        err = check_equal(kern(), plain(), f"sharded_compressed {name} srcbd_c decode")
+        bound_ms, bound_by = chunked_decode_bound(s)
+        decode_cases.append({
+            "name": "delta_decode_chunked" + ("_adaptive" if s.hi is not None else ""),
+            "layout": name, "lane": "srcbd_c", "R": s.deltas.shape[0],
+            "max_abs_err": err, "same_bits": same_bits(kern, f"sharded_compressed {name} decode"),
+            "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
+            "plain_ms": time_ms(plain, reps=3), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    out.update(kernels=cases, decode_kernels=decode_cases, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return launches, cases + decode_cases
+
+
+def phase_sharded_stream(plain_stream) -> dict:
+    """``AspenStream(mirror="sharded")`` from the stream phase's current
+    tree (2^18 vertices): each publish is applied to it and to the flat
+    stream, and after each the shard lanes are held against the flat
+    mirror's edges and ``query_batch`` against the flat engine.  The
+    third publish is an out-edge batch from 64 vertices sized past the
+    fullest shard's slack, so the capacity policy rebalances; the fourth
+    deletes every 64th row of it."""
+    import torch
+
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.core import sharded_pool as sp
+    from repro_torch.core import streaming as st
+    from repro_torch.kernels import segment_reduce as sr
+
+    t_phase = time.perf_counter()
+    v = plain_stream.acquire()
+    try:
+        tree = v.graph
+        t = time.perf_counter()
+        sst = st.AspenStream(tree, mirror="sharded", n_shards=SHARDS, device="cuda")
+        build_s = time.perf_counter() - t
+    finally:
+        plain_stream.release(v)
+    flat0 = plain_stream.flat_graph()
+    n = flat0.n
+    live = np.flatnonzero(torch.diff(flat0.offsets).cpu().numpy() > 0)
+    rng = np.random.default_rng(SEED + 23)
+    out = {"phase": "sharded_stream", "n": n, "m0": int(flat0.m), "n_shards": SHARDS,
+           "mirror_build_s": build_s}
+    del flat0
+    publish_s = {"sharded": [], "flat": []}
+    checks = []
+
+    def publish(method, *args, **kw):
+        for tag, s in (("sharded", sst), ("flat", plain_stream)):
+            t = time.perf_counter()
+            getattr(s, method)(*args, **kw)
+            torch.cuda.synchronize()
+            publish_s[tag].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        sg = sst.sharded_graph()
+        flat = plain_stream.flat_graph()
+        if not np.array_equal(sp.graph_to_edge_array(sg), fg.to_edge_array(flat)):
+            raise AssertionError(f"sharded_stream: shard lanes differ from the flat mirror "
+                                 f"after {method}")
+        if sg.weighted and not np.array_equal(sp.graph_to_weight_array(sg),
+                                              fg.to_weight_array(flat)):
+            raise AssertionError("sharded_stream: value lanes differ from the flat mirror")
+        srcs = rng.choice(live, 16, replace=False)
+        got = sst.query_batch(srcs, kind="bfs")
+        if not np.array_equal(got, plain_stream.query_batch(srcs, kind="bfs", backend="torch")):
+            raise AssertionError(f"sharded_stream: bfs differs from the flat engine after {method}")
+        if sg.weighted:
+            got = sst.query_batch(srcs[:4], kind="sssp")
+            want = plain_stream.query_batch(srcs[:4], kind="sssp", backend="torch")
+            if not np.array_equal(got, want):
+                raise AssertionError("sharded_stream: sssp differs from the flat engine")
+        checks.append({"publish": method, "m": int(flat.m), "weighted": sg.weighted,
+                       "counts": sg.pool.n.tolist(), "cap_per": sg.pool.cap_per,
+                       "rebalances": sst.rebalances, "check_s": time.perf_counter() - t})
+
+    sr.reset_launches()
+    pairs = rng.choice(live, (SHARD_STREAM_BATCH, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    publish("insert_edges", pairs)
+    publish("delete_edges", pairs[: pairs.shape[0] // 2])
+    # past the slack of the fullest shard: the capacity policy rebalances
+    counts = sst.sharded_graph().pool.n.cpu().numpy()
+    k = int(sst.sharded_graph().pool.cap_per - counts.max()) + 1
+    heads = live[-64:]
+    per = -(-k // heads.size) + 1  # one row a head may be a self loop, dropped
+    big = np.stack([np.repeat(heads, per),
+                    np.concatenate([rng.choice(n, per, replace=False) for _ in heads])], 1)
+    big = big[big[:, 0] != big[:, 1]]
+    publish("insert_edges", big, symmetric=False)
+    if sst.rebalances < 1:
+        raise AssertionError("sharded_stream: the capacity policy did not rebalance")
+    publish("delete_edges", big[::64], symmetric=False)
+    out.update(
+        launches=dict(sr.LAUNCHES), publishes=len(checks), big_batch_rows=int(big.shape[0]),
+        rebalances=sst.rebalances, mean_publish_s={k: float(np.mean(v)) for k, v in publish_s.items()},
+        publish_s=publish_s, checks=checks, shard_stats=sst.shard_stats(),
+        phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # GNN phases: GraphSAGE's sampled minibatch on the fanout kernel; GCN and
 # the block SpMM at Cora's size
 # ---------------------------------------------------------------------------
@@ -1830,14 +2328,15 @@ def time_ms_pipelined(fn, reps: int = 20) -> float:
 
 
 def time_uncounted(fn, timer=None) -> float:
-    """``time_ms`` (or ``timer``) of a kernel called only to be timed: the
-    GNN and flash launch counts are put back afterwards, so they keep the
-    main path's launches."""
+    """``time_ms`` (or ``timer``) of a kernel called only to be timed: every
+    launch count is put back afterwards, so each keeps the main path's
+    launches."""
     from repro_torch.kernels import csr_spmm
+    from repro_torch.kernels import delta_decode as dd
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import segment_reduce as sr
 
-    saved = [(d, dict(d)) for d in (sr.LAUNCHES, csr_spmm.LAUNCHES, fd.LAUNCHES)]
+    saved = [(d, dict(d)) for d in (sr.LAUNCHES, dd.LAUNCHES, csr_spmm.LAUNCHES, fd.LAUNCHES)]
     try:
         return (timer or time_ms)(fn)
     finally:
@@ -2572,6 +3071,17 @@ def phase_lm_serve() -> dict:
     return out
 
 
+def sharded_row(cases, name: str) -> dict | None:
+    """A kernel row's numbers at the sharded path's default launch shape
+    (per shard, D = 1)."""
+    c = next((c for c in cases if c["name"] == name and c.get("D", 1) == 1
+              and c.get("shape", "per_shard") == "per_shard"), None)
+    if c is None:
+        return None
+    return {k: c[k] for k in ("ms", "pipelined_ms", "plain_ms", "bound_ms", "library_ms",
+                              "max_abs_err", "same_bits") if k in c}
+
+
 def main() -> int:
     import torch
 
@@ -2609,6 +3119,7 @@ def main() -> int:
     g, aux, scale_launches = run("scale", phase_scale)
     cases = run("scale_kernels", phase_scale_kernels, g, aux)
     padded = run("scale_decode", phase_scale_decode, g)
+    sh_launches, sh_cases = run("sharded_scale", phase_sharded_scale, g, aux)
     plain_raises = plain_scale_graph_raises(g)
     del g, aux  # the 2^22 flat scale graph leaves the card here
     gc.collect()
@@ -2616,9 +3127,13 @@ def main() -> int:
     run("compressed_kernels", phase_compressed_kernels)
     cstream_launches = run("compressed_stream", phase_compressed_stream, plain_stream)
     serve_launches = run("graph_serve", phase_graph_serve, plain_stream)
+    sh_stream = run("sharded_stream", phase_sharded_stream, plain_stream)
     del plain_stream
     cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
+    torch.cuda.empty_cache()
+    shc_launches, shc_cases = run("sharded_compressed", phase_sharded_compressed)
+    gc.collect()  # the compressed sharded pools leave the card here
     torch.cuda.empty_cache()
     run("gnn_kernels", phase_gnn_kernels)
     sampled = run("gnn_sampled", phase_gnn_sampled)
@@ -2646,7 +3161,12 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_reduce.py:"
                         + ("53" if name == "segment_sum" else "109"),
-            "launches": stream_launches[name] + scale_launches[name] + serve_launches[name],
+            "launches": (stream_launches[name] + scale_launches[name] + serve_launches[name]
+                         + sh_launches[name] + sh_stream["launches"][name]
+                         + shc_launches[name]),
+            "sharded_launches": sh_launches[name] + sh_stream["launches"][name]
+            + shc_launches[name],
+            "sharded": sharded_row(sh_cases, name),
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
@@ -2665,7 +3185,9 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_reduce.py:" + replaces[name],
-            "launches": cstream_launches[name] + cscale_launches[name],
+            "launches": cstream_launches[name] + cscale_launches[name] + shc_launches[name],
+            "sharded_launches": shc_launches[name],
+            "sharded": sharded_row(shc_cases, name),
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
@@ -2682,10 +3204,12 @@ def main() -> int:
             c, launches = padded, host_launches[name]
         else:
             c = next(c for c in ccases if c["name"] == name)
-            launches = cstream_launches[name] + cscale_launches[name]
+            launches = cstream_launches[name] + cscale_launches[name] + shc_launches[name]
         summary.append({
             "name": name,
             "route": "cuda",
+            "sharded_launches": shc_launches.get(name, 0),
+            "sharded": sharded_row(shc_cases, name),
             "source": "src/repro_torch/kernels/csrc/delta_decode.cu",
             "replaces": "src/repro/kernels/delta_decode.py:" + replaces[name],
             "launches": launches,

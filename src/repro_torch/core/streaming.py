@@ -1,7 +1,7 @@
 """Aspen streaming interface (paper §6 + §7.3): updates alongside queries.
 
-Counterpart of ``repro/core/streaming.py``: the flat-mirror path.
-``AspenStream`` is a VersionedGraph plus the Ligra-style update API.
+Counterpart of ``repro/core/streaming.py``.  ``AspenStream`` is a
+VersionedGraph plus the Ligra-style update API.
 Updates are functional: each batch produces a new version published
 with SET; readers ACQUIRE snapshots and never block.
 
@@ -13,7 +13,10 @@ deduped and rank-merged into the mirror on the device, then both are
 published atomically as ONE version.  ``engine("torch")`` over an
 unchanged version is a cache hit (engines are cached on the version),
 and a fresh version's engine costs one ``engine_aux`` over the merged
-mirror.
+mirror.  ``mirror="sharded"`` keeps a range-sharded ``ShardedGraph``
+(``CompressedShardedGraph``) instead, merged shard-locally and served by
+``engine("sharded")``; ``mirror=False`` keeps none, and each version's
+engine is rebuilt from its tree snapshot.
 
 Incremental queries: every edge publish records its batch as a
 ``versioning.Delta`` in the version's aux, and ``stream.subscribe(kind,
@@ -22,9 +25,6 @@ standing result (pagerank / cc / bfs / sssp) across publishes through
 the delta-aware warm-start path instead of recomputing.  ``on_publish``
 registers listeners the writer calls after each publish (the serving
 layer's promotion trigger).
-
-Not ported yet (ROADMAP.md queue 1 item 12): the sharded mirror
-(``mirror="sharded"``, which raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -40,9 +40,11 @@ from .._device import resolve
 from . import flat_ctree as fct
 from . import flat_graph as fg
 from . import graph as G
+from . import sharded_pool as sp
 from .versioning import DELTA, Delta, Version, VersionedGraph
 
 MIRROR = "flat"  # aux key of the FlatGraph mirror on a Version
+SHARDED_MIRROR = "sharded"  # aux key of the ShardedGraph mirror
 # hi-plane slack for adaptive compressed mirrors: fraction of chunk rows
 # reserved beyond the exact wide-chunk count at each rebuild, so
 # recompression absorbs width drift between full rebuilds
@@ -184,31 +186,48 @@ class AspenStream:
         mirror: "bool | str" = True,
         compressed: bool = False,
         device=None,
+        n_shards: Optional[int] = None,
     ):
         """Keeps the resident mirror on ``device`` (``None`` = cuda)
-        alongside the tree; ``mirror`` must be ``True`` / ``"flat"`` (the
-        only mirror ported so far).
+        alongside the tree.  ``mirror=True`` (= ``"flat"``) keeps a
+        ``FlatGraph``; ``mirror="sharded"`` a range-sharded
+        ``ShardedGraph`` of ``n_shards`` rows (default
+        ``sharded_pool.default_n_shards()``), updated by the shard-local
+        rank-merge and served by ``engine("sharded")``; ``mirror=False``
+        keeps no mirror, and each version's engine is rebuilt from its
+        tree snapshot (counted in ``FLAT_REBUILDS``).
 
         ``compressed=True`` keeps the mirror chunk-compressed
-        (``flat_graph.CompressedPool``, adaptive widths with
-        ``HI_HEADROOM`` spare hi rows): each edge batch decompresses,
-        rank-merges and recompresses, so the resident state is always a
-        few bytes per edge, and ``engine("torch")`` serves a
-        ``CompressedEngine``.  Construction raises ``ValueError`` when
-        the graph spills the layout's escape lane (``compress_host``)."""
-        if mirror == "sharded":
-            raise NotImplementedError(
-                "the sharded mirror is not ported yet (ROADMAP.md queue 1 item 12)"
-            )
-        if mirror not in (True, MIRROR):
-            raise ValueError(f"mirror must be True or 'flat'; got {mirror!r}")
+        (``flat_graph.CompressedPool`` / ``sharded_pool.
+        CompressedShardedPool``, adaptive widths with ``HI_HEADROOM``
+        spare hi rows): each edge batch decompresses, rank-merges and
+        recompresses, so the resident state is always a few bytes per
+        edge, and ``engine()`` serves the matching compressed engine.
+        Construction raises ``ValueError`` when the graph spills the
+        layout's escape lane."""
+        kind = {True: MIRROR, False: None}[mirror] if isinstance(mirror, bool) else mirror
+        if kind not in (None, MIRROR, SHARDED_MIRROR):
+            raise ValueError(f"mirror must be bool, 'flat' or 'sharded'; got {mirror!r}")
+        if compressed and kind is None:
+            raise ValueError("compressed=True requires a resident mirror")
         self.device = resolve(device)
+        self._mirror_kind = kind
         self._compressed = compressed
         self.spill_heals = 0  # compressed mirrors rebuilt after an update spilled
+        self.rebalances = 0  # sharded mirrors redistributed by the capacity policy
+        if kind == SHARDED_MIRROR:
+            self._n_shards = n_shards if n_shards is not None else sp.default_n_shards()
+            mesh = sp.pool_mesh(self._n_shards, self.device)
+            # the update steps, built once per stream
+            if compressed:
+                self._s_insert = sp.make_insert_step_compressed(mesh)
+                self._s_delete = sp.make_delete_step_compressed(mesh)
+            else:
+                self._s_insert = sp.make_insert_step(mesh)
+                self._s_delete = sp.make_delete_step(mesh)
         g0 = initial if initial is not None else G.empty(b, seed)
-        self.vg: VersionedGraph[G.Graph] = VersionedGraph(
-            g0, aux={MIRROR: self._mirror_from_tree(g0)}
-        )
+        aux = {kind: self._mirror_from_tree(g0)} if kind else None
+        self.vg: VersionedGraph[G.Graph] = VersionedGraph(g0, aux=aux)
         self._wlock = threading.Lock()  # serializes writers (incl. mirror merge)
         self._publish_listeners: List[Callable[[Version[G.Graph]], None]] = []
         self._listener_lock = threading.Lock()
@@ -254,6 +273,11 @@ class AspenStream:
         ``compress_host`` re-selects widths and re-sizes the hi plane from
         scratch, and raises rather than publish a mis-decoding mirror."""
         flat = self._flat_from_tree(g)
+        if self._mirror_kind == SHARDED_MIRROR:
+            from .traversal import sharded_graph_of_flat
+
+            sg = sharded_graph_of_flat(flat, self._n_shards)
+            return sp.compress_sharded(sg, hi_headroom=HI_HEADROOM) if self._compressed else sg
         if self._compressed:
             return fg.compress_host(flat, hi_headroom=HI_HEADROOM)
         return flat
@@ -305,13 +329,74 @@ class AspenStream:
                                               mirror.edge_capacity)
         return fg.delete_edges_device(mirror, self._device_batch(edges))
 
+    def _sharded_insert(self, mirror, edges: np.ndarray, weights: Optional[np.ndarray] = None):
+        """Apply an insert batch to the sharded mirror: the device batch
+        (sorted, deduped), then the shard-local rank-merge (the batch is
+        the only operand every shard receives: O(batch), not O(pool)).
+
+        Capacity policy, from a host read of the per-shard counts per
+        batch: when the fullest shard could overflow, the pool is first
+        REBALANCED (an O(m) redistribution to equal counts, the LSM
+        compaction) at a grown per-shard capacity, and when
+        ``should_rebalance`` sees a shard near capacity or the counts
+        skewed, at the same capacity.  A weighted batch against an
+        unweighted mirror upgrades the pool to unit values."""
+        if edges.shape[0] == 0:
+            return mirror
+        pool = mirror.pool
+        compressed = isinstance(pool, sp.CompressedShardedPool)
+        batch = self._device_batch(edges, weights)
+        counts = pool.n.cpu().numpy()
+        k = int(edges.shape[0])
+        n_out = max(mirror.n, int(edges[:, 0].max()) + 1)
+        if weights is not None and pool.vals is None:
+            pool = pool._replace(vals=torch.ones((pool.n_shards, pool.cap_per),
+                                                 dtype=torch.float32, device=self.device))
+        cap_per = pool.cap_per
+        grow = int(counts.max()) + k > cap_per
+        if grow or sp.should_rebalance(pool):
+            per = -(-int(counts.sum()) // self._n_shards)
+            cap = max(cap_per, fct.grown_capacity(per + k)) if grow else None
+            self.rebalances += 1
+            pool = (sp.rebalance_compressed(pool, mirror.n, cap_per=cap) if compressed
+                    else sp.rebalance(pool, cap_per=cap))
+        if compressed:
+            return sp.CompressedShardedGraph(
+                self._s_insert(pool, batch.data, batch.vals, n=n_out), n_out)
+        return sp.ShardedGraph(self._s_insert(pool, batch.data, batch.vals), n_out)
+
+    def _sharded_delete(self, mirror, edges: np.ndarray):
+        if edges.shape[0] == 0:
+            return mirror
+        batch = self._device_batch(edges)
+        if isinstance(mirror.pool, sp.CompressedShardedPool):
+            return sp.CompressedShardedGraph(
+                self._s_delete(mirror.pool, batch.data, n=mirror.n), mirror.n)
+        return sp.ShardedGraph(self._s_delete(mirror.pool, batch.data), mirror.n)
+
+    def _apply_insert(self, mirror, g_old, edges, weights=None):
+        if self._mirror_kind == SHARDED_MIRROR:
+            return self._sharded_insert(mirror, edges, weights)
+        return self._mirror_insert(mirror, g_old, edges, weights)
+
+    def _apply_delete(self, mirror, edges):
+        if self._mirror_kind == SHARDED_MIRROR:
+            return self._sharded_delete(mirror, edges)
+        return self._mirror_delete(mirror, edges)
+
     def _heal_spill(self, m, g2: G.Graph):
         """Compressed-mirror self-heal: an incremental recompression can
         overflow the escape lane or the hi plane, which the update folds
         into the sticky ``spill`` flag.  One flag read per publish catches
         it, and the mirror is rebuilt from the tree BEFORE the spilled
         state can be published: readers never see a mis-decoding mirror."""
-        if not isinstance(m, fg.CompressedPool) or not bool(m.dst.spill):
+        if isinstance(m, fg.CompressedPool):
+            spilled = bool(m.dst.spill)
+        elif isinstance(m, sp.CompressedShardedGraph):
+            spilled = bool(m.pool.dst.spill.any())
+        else:
+            return m
+        if not spilled:
             return m
         self.spill_heals += 1
         return self._mirror_from_tree(g2)
@@ -328,9 +413,11 @@ class AspenStream:
         def txn(v: Version[G.Graph]):
             g2 = tree_fn(v.graph)
             aux = {} if delta is None else {DELTA: delta}
-            m = v.aux.get(MIRROR)
-            m2 = mirror_fn(m, v.graph, g2) if m is not None else self._mirror_from_tree(g2)
-            aux[MIRROR] = self._heal_spill(m2, g2)
+            kind = self._mirror_kind
+            if kind is not None:
+                m = v.aux.get(kind)
+                m2 = mirror_fn(m, v.graph, g2) if m is not None else self._mirror_from_tree(g2)
+                aux[kind] = self._heal_spill(m2, g2)
             return g2, aux
 
         with self._wlock:
@@ -356,7 +443,7 @@ class AspenStream:
                 weights = np.concatenate([weights, weights])
         return self._publish(
             lambda g: G.insert_edges(g, edges, weights=weights),
-            lambda m, g_old, g_new: self._mirror_insert(m, g_old, edges, weights),
+            lambda m, g_old, g_new: self._apply_insert(m, g_old, edges, weights),
             delta=Delta(ins=edges, ins_w=weights),
         )
 
@@ -366,7 +453,7 @@ class AspenStream:
             edges = np.concatenate([edges, edges[:, ::-1]])
         return self._publish(
             lambda g: G.delete_edges(g, edges),
-            lambda m, g_old, g_new: self._mirror_delete(m, edges),
+            lambda m, g_old, g_new: self._apply_delete(m, edges),
             delta=Delta(dels=edges),
         )
 
@@ -399,11 +486,56 @@ class AspenStream:
 
     def flat_graph(self) -> fg.FlatGraph:
         """The current version's FlatGraph: the resident mirror (a
-        compressed mirror is decompressed on the way out)."""
+        compressed mirror is decompressed on the way out), or, on
+        mirror-less and sharded streams, a one-off rebuild from the tree."""
         v = self.acquire()
         try:
-            m = v.aux[MIRROR]
-            return fg.decompress(m) if isinstance(m, fg.CompressedPool) else m
+            if MIRROR in v.aux:
+                m = v.aux[MIRROR]
+                return fg.decompress(m) if isinstance(m, fg.CompressedPool) else m
+            return self._flat_from_tree(v.graph)
+        finally:
+            self.release(v)
+
+    def sharded_graph(self):
+        """The current version's ShardedGraph: the resident sharded mirror
+        (a compressed one is decompressed on the way out), or, on other
+        streams, a one-off partition of the flat mirror (or of a rebuild
+        from the tree)."""
+        from .traversal import sharded_graph_of_flat
+
+        v = self.acquire()
+        try:
+            if SHARDED_MIRROR in v.aux:
+                m = v.aux[SHARDED_MIRROR]
+                return sp.decompress_sharded(m) if isinstance(m, sp.CompressedShardedGraph) else m
+            flat = v.aux.get(MIRROR)
+            if flat is None:
+                flat = self._flat_from_tree(v.graph)
+            elif isinstance(flat, fg.CompressedPool):
+                flat = fg.decompress(flat)
+            return sharded_graph_of_flat(flat)
+        finally:
+            self.release(v)
+
+    def shard_stats(self) -> Optional[dict]:
+        """Occupancy skew of the current sharded mirror and the policy
+        outputs derived from it: ``imbalance`` (max / mean shard counts),
+        whether the auto-rebalance trigger would fire, and the recommended
+        shard count for the current edge total (None on streams without a
+        sharded mirror)."""
+        v = self.acquire()
+        try:
+            m = v.aux.get(SHARDED_MIRROR)
+            if m is None:
+                return None
+            pool = m.pool
+            counts = pool.n.cpu().numpy()
+            stats = sp.imbalance_stats(counts)
+            stats["n_shards"] = pool.n_shards
+            stats["should_rebalance"] = sp.should_rebalance(pool)
+            stats["recommended_n_shards"] = sp.recommend_n_shards(int(counts.sum()))
+            return stats
         finally:
             self.release(v)
 
@@ -411,8 +543,11 @@ class AspenStream:
         """Traversal engine over the current version: ``"numpy"`` -> a
         NumpyEngine over a FlatSnapshot (CPU); ``"torch"`` -> a
         TorchEngine (compressed streams: a CompressedEngine) over the
-        version's resident mirror.  Engines are cached per (version,
-        backend) and die with the version."""
+        version's resident flat mirror; ``"sharded"`` -> a ShardedEngine
+        (CompressedShardedEngine) over its sharded mirror.  A stream
+        without that mirror rebuilds the engine's substrate from the
+        version's tree snapshot on the stream's device.  Engines are
+        cached per (version, backend) and die with the version."""
         v = self.acquire()
         try:
             return self._engine_for(v, backend)
@@ -420,7 +555,7 @@ class AspenStream:
             self.release(v)
 
     def _default_backend(self) -> str:
-        return "torch"
+        return "sharded" if self._mirror_kind == SHARDED_MIRROR else "torch"
 
     def _engine_for(self, v: Version[G.Graph], backend: str):
         """``engine`` for an already-acquired version (subscriptions pin
@@ -431,17 +566,19 @@ class AspenStream:
         eng = v.cache.get(key)
         if eng is None:
             ENGINE_BUILDS.bump()
-            if backend == "torch":
+            if backend == "torch" and MIRROR in v.aux:
                 eng = make_engine(v.aux[MIRROR])
+            elif backend == "sharded" and SHARDED_MIRROR in v.aux:
+                eng = make_engine(v.aux[SHARDED_MIRROR])
             else:
-                eng = make_engine(G.flat_snapshot(v.graph), backend=backend)
+                eng = make_engine(G.flat_snapshot(v.graph), backend=backend, device=self.device)
             eng = v.cache.setdefault(key, eng)
         return eng
 
     def query_batch(self, sources=None, kind: str = "bfs", backend: Optional[str] = None, **kw):
         """Serve a coalesced batch of queries against ONE version-pinned
-        engine (``_default_backend()``, the torch engine, unless
-        ``backend`` says otherwise).
+        engine (``_default_backend()``: the sharded engine on a sharded
+        stream, else the torch engine, unless ``backend`` says otherwise).
 
         kinds: ``"bfs"`` -> int64[B, n] parent rows; ``"distances"`` ->
         int64[B, n] hop counts; ``"bc"`` -> float[B, n] dependency scores;
@@ -688,6 +825,7 @@ class ConcurrentStats(NamedTuple):
     n_updates: int
     n_queries: int
     queries_per_sec: float = 0.0  # queries served / reader-busy s
+    subscriber_staleness: float = 0.0  # mean versions behind after each refresh
 
 
 def run_concurrent(
@@ -699,12 +837,18 @@ def run_concurrent(
     symmetric: bool = True,
     engine_backend: Optional[str] = None,
     queries_per_call: int = 1,
+    subscription: Optional[Subscription] = None,
 ) -> ConcurrentStats:
     """Paper §7.3: a writer applies updates one batch at a time while a
     reader repeatedly runs ``query_fn`` against fresh snapshots.
 
-    ``query_fn`` receives a ``FlatSnapshot`` per query by default, or the
-    stream's cached engine with ``engine_backend`` ("numpy"/"torch").
+    ``query_fn`` receives a ``FlatSnapshot`` per query by default, the
+    stream's cached engine with ``engine_backend`` ("numpy" / "torch" /
+    "sharded"), or a live ``Subscription`` with ``subscription`` (the
+    incremental serve path: ``query_fn`` typically calls ``refresh()``).
+    In subscriber mode the reader also samples *staleness* after each
+    call — how many versions the writer has published past the one the
+    subscriber serves — reported as their mean, ``subscriber_staleness``.
     ``queries_per_call`` says how many user queries one call serves.  The
     reported throughput counts directed edges actually applied (2x the
     batch only when symmetric)."""
@@ -730,8 +874,11 @@ def run_concurrent(
             n_directed[0] += k * per_update
 
     q_lat: List[float] = []
+    staleness: List[int] = []
 
     def _substrate():
+        if subscription is not None:
+            return subscription
         if engine_backend is not None:
             return stream.engine(engine_backend)
         return stream.flat_snapshot()
@@ -742,6 +889,8 @@ def run_concurrent(
             t0 = time.perf_counter()
             query_fn(sub)
             q_lat.append(time.perf_counter() - t0)
+            if subscription is not None:
+                staleness.append(stream.vg.current_stamp - subscription.stamp)
 
     tu = threading.Thread(target=updater)
     tq = threading.Thread(target=reader)
@@ -769,6 +918,7 @@ def run_concurrent(
         n_updates=n_upd[0],
         n_queries=len(q_lat) * queries_per_call,
         queries_per_sec=len(q_lat) * queries_per_call / max(sum(q_lat), 1e-9),
+        subscriber_staleness=float(np.mean(staleness)) if staleness else 0.0,
     )
 
 

@@ -1,9 +1,9 @@
-"""Unified edgeMap traversal engine: one algorithm text, two backends.
+"""Unified edgeMap traversal engine: one algorithm text, three backends.
 
 Counterpart of ``repro/core/traversal/__init__.py``.  See ``base.py``
-for the backend contract, ``numpy_backend`` / ``torch_backend`` for the
-substrates, and ``algorithms`` for the backend-generic BFS / PageRank /
-CC / SSSP / BC.
+for the backend contract, ``numpy_backend`` / ``torch_backend`` /
+``sharded_backend`` for the substrates, and ``algorithms`` for the
+backend-generic BFS / PageRank / CC / SSSP / BC.
 
 Quick start::
 
@@ -12,6 +12,7 @@ Quick start::
 
     eng_np = make_engine(G.flat_snapshot(g))                   # numpy
     eng_t = make_engine(fg.from_edges(n, edges, device="cuda"))  # torch
+    eng_s = make_engine(sharded_graph_of_flat(eng_t.g, 8))         # sharded
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from .numpy_backend import (
     from_ids,
     gather_csr,
 )
+from .sharded_backend import CompressedShardedEngine, ShardedEngine
 from .torch_backend import CompressedEngine, TorchEngine
 
 __all__ = [
@@ -47,6 +49,8 @@ __all__ = [
     "NumpyEngine",
     "TorchEngine",
     "CompressedEngine",
+    "ShardedEngine",
+    "CompressedShardedEngine",
     "VertexSubset",
     "edge_map",
     "engine_of",
@@ -56,6 +60,7 @@ __all__ = [
     "algorithms",
     "make_engine",
     "flat_graph_of",
+    "sharded_graph_of_flat",
     "FLAT_REBUILDS",
     "ENGINE_BUILDS",
     "HOST_SYNCS",
@@ -73,36 +78,59 @@ ENGINE_BUILDS = Counter()
 
 def make_engine(obj, backend: str | None = None, device=None) -> TraversalEngine:
     """Engine for a snapshot object, dispatched on type (or forced by
-    ``backend`` in {"numpy", "torch"}).
+    ``backend`` in {"numpy", "torch", "sharded"}).
 
-    A ``FlatGraph`` gives a ``TorchEngine`` on the graph's own device, a
-    ``CompressedPool`` a ``CompressedEngine``; anything with the
-    FlatSnapshot protocol gives a ``NumpyEngine``, or with
-    ``backend="torch"`` a ``TorchEngine`` over a FlatGraph rebuilt on
-    ``device`` (``None`` = cuda); a tree-level ``Graph`` is snapshotted
-    first.  The sharded engine is not ported yet."""
+    A ``FlatGraph`` gives a ``TorchEngine`` on the graph's own device (with
+    ``backend="sharded"``, a ``ShardedEngine`` over its range-sharded
+    pool), a ``CompressedPool`` a ``CompressedEngine``, a ``ShardedGraph``
+    a ``ShardedEngine`` and a ``CompressedShardedGraph`` a
+    ``CompressedShardedEngine``; anything with the FlatSnapshot protocol
+    gives a ``NumpyEngine``, or with ``backend="torch"`` / ``"sharded"``
+    an engine over a FlatGraph rebuilt on ``device`` (``None`` = cuda); a
+    tree-level ``Graph`` is snapshotted first."""
     from ..flat_graph import CompressedPool, FlatGraph
     from ..graph import Graph, flat_snapshot
+    from ..sharded_pool import CompressedShardedGraph, ShardedGraph
 
-    if backend == "sharded":
-        raise NotImplementedError(
-            "the sharded engine is not ported yet (ROADMAP.md queue 1 item 12)"
-        )
-    if backend not in (None, "numpy", "torch"):
-        raise ValueError(f"unknown backend {backend!r}; expected 'numpy' or 'torch'")
+    if backend not in (None, "numpy", "torch", "sharded"):
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'numpy', 'torch' or 'sharded'")
     if isinstance(obj, CompressedPool):
-        if backend == "numpy":
+        if backend in ("numpy", "sharded"):
             raise TypeError("CompressedPool is device-native; decompress first")
         return CompressedEngine(obj)
+    if isinstance(obj, CompressedShardedGraph):
+        if backend in ("numpy", "torch"):
+            raise TypeError("CompressedShardedGraph is sharded-native")
+        return CompressedShardedEngine(obj)
+    if isinstance(obj, ShardedGraph):
+        if backend in ("numpy", "torch"):
+            raise TypeError("ShardedGraph is sharded-native; pass backend='sharded'")
+        return ShardedEngine(obj)
     if isinstance(obj, FlatGraph):
         if backend == "numpy":
             raise TypeError("FlatGraph is device-native; build a FlatSnapshot for numpy")
+        if backend == "sharded":
+            return ShardedEngine(sharded_graph_of_flat(obj))
         return TorchEngine(obj)
     if isinstance(obj, Graph):
         obj = flat_snapshot(obj)
-    if backend == "torch":
-        return TorchEngine(flat_graph_of(obj, device=device))
+    if backend in ("torch", "sharded"):
+        return make_engine(flat_graph_of(obj, device=device), backend=backend)
     return engine_of(obj)
+
+
+def sharded_graph_of_flat(g, n_shards: int | None = None):
+    """FlatGraph -> ShardedGraph: range-partition the sorted packed-key
+    pool (and its value lane) into ``n_shards`` rows (``None`` =
+    ``sharded_pool.default_n_shards()``), on the graph's own device with
+    no host round trip of the keys.  O(m); streams keep a resident sharded
+    mirror so queries never pay this per version."""
+    from ..sharded_pool import ShardedGraph, default_n_shards, from_sorted_device
+
+    if n_shards is None:
+        n_shards = default_n_shards()
+    return ShardedGraph(from_sorted_device(g.keys, int(g.m), n_shards, g.weights), g.n)
 
 
 def flat_graph_of(snap, device=None):

@@ -1,7 +1,8 @@
 """Query lanes: coalescing admitted requests into batched dispatches.
 
 Counterpart of ``repro/serve/graph/lanes.py``; the engines are the
-port's (``TorchEngine`` / ``CompressedEngine``, or numpy).
+port's (``TorchEngine`` / ``CompressedEngine``, ``ShardedEngine`` /
+``CompressedShardedEngine``, or numpy).
 
 A *lane* is one homogeneous pending set — requests that can legally
 ride a single ``query_batch``-style dispatch.  The lane key is
@@ -56,6 +57,9 @@ def engine_signature(engine) -> Optional[Tuple]:
     g = getattr(engine, "cg", None) or getattr(engine, "g", None)
     if g is not None and hasattr(g, "edge_capacity"):  # TorchEngine / CompressedEngine
         return ("torch", engine.n, int(g.edge_capacity), engine.weighted)
+    sg = getattr(engine, "csg", None) or getattr(engine, "sg", None)
+    if sg is not None:  # ShardedEngine / CompressedShardedEngine
+        return ("sharded", engine.n, (sg.n_shards, sg.pool.cap_per), engine.weighted)
     return None
 
 

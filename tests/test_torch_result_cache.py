@@ -24,8 +24,8 @@ Held:
   (9) the opt-in fastpath and the promotion capture.
 
 Left out of the reference's file: its fastpath zero-retrace test (eager
-torch traces nothing) and the sharded cache test (the sharded mirror is
-not ported).
+torch traces nothing).  The sharded cache test runs 8 shard rows on one
+device (the reference's needs an 8-device mesh).
 """
 import gc
 import threading
@@ -455,6 +455,21 @@ def test_cached_bit_identical_to_uncached(rmat_edge_list, backend):
                 assert st["promoted_dropped"] == 0 and st["promote_errors"] == 0
             else:
                 assert st is None
+    for a, b in zip(got[False], got[True]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_cached_bit_identical_sharded(rmat_edge_list):
+    publish = np.array([[3, 200], [200, 210]])
+    got = {}
+    for cache_on in (False, True):
+        stream = AspenStream(tG.build_graph(N, rmat_edge_list), mirror="sharded", n_shards=8,
+                             device="cpu")
+        svc = GraphQueryService(stream, backend="sharded", max_batch=4, result_cache=cache_on)
+        with svc:
+            got[cache_on] = _run_replay(svc, publish)
+            if cache_on:
+                assert svc.stats()["cache"]["hits"] > 0
     for a, b in zip(got[False], got[True]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 

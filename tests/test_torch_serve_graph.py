@@ -21,8 +21,9 @@ reference's on its jax engine.  Held:
 
 Every wait has its own timeout and every service runs in a ``with``
 block, so a hang fails one test.  Left out of the reference's file: the
-zero-retrace gate (eager torch traces nothing; ``TRACES`` stays 0) and
-the sharded session test (the sharded mirror is not ported).
+zero-retrace gate (eager torch traces nothing; ``TRACES`` stays 0).  The
+sharded session test runs 8 shard rows on one device (the reference's
+needs an 8-device mesh).
 """
 import threading
 import time
@@ -36,7 +37,7 @@ from repro.core.streaming import AspenStream as JaxStream
 from repro.serve.graph import GraphQueryService as JaxService
 from repro_torch.core import graph as tG
 from repro_torch.core.streaming import AspenStream, UpdateQueue, drain_updates
-from repro_torch.core.traversal import TRACES
+from repro_torch.core.traversal import TRACES, make_engine
 from repro_torch.core.traversal import algorithms as talg
 from repro_torch.data.rmat import rmat_edges, symmetrize
 from repro_torch.serve.graph import KINDS, GraphQueryService, QueueFull
@@ -280,6 +281,40 @@ def test_session_strictly_serializable(rmat_edge_list, backend):
             fresh = svc.submit("bfs", source=3).result(timeout=T)
         assert stream.vg.current_stamp > stamp0
         assert not np.array_equal(fresh, bfs0)  # unpinned reads advanced
+
+
+def test_session_strictly_serializable_sharded(rmat_edge_list):
+    """The same on a sharded stream served by the sharded engine: the
+    session's reads stay on its version, equal to a flat engine there."""
+    stream = make_stream(rmat_edge_list, mirror="sharded", n_shards=8)
+    with GraphQueryService(stream, backend="sharded", max_batch=4) as svc:
+        assert svc.backend == "sharded"
+        with svc.session(tenant="t") as sess:
+            bfs0 = sess.query("bfs", source=3).result(timeout=T)
+            flat0 = make_engine(tG.flat_snapshot(sess.version.graph), backend="torch",
+                                device="cpu")
+            np.testing.assert_array_equal(bfs0, talg.bfs_multi(flat0, [3])[0][0])
+            svc.insert_edges(np.array([[3, 200], [200, 210]]))
+            svc.flush_updates(timeout=T)
+            assert np.array_equal(sess.query("bfs", source=3).result(timeout=T), bfs0)
+            fresh = svc.submit("bfs", source=3).result(timeout=T)
+        assert not np.array_equal(fresh, bfs0)
+
+
+def test_service_on_mirrorless_and_sharded_streams(rmat_edge_list):
+    """The service's lanes over a stream with no mirror (each version's
+    engine rebuilt from its tree) and over a sharded one: answers equal
+    ``query_batch`` on the stream, and the shape key names the engine."""
+    from repro_torch.serve.graph.lanes import engine_signature
+
+    for kw, sig0 in (({"mirror": False}, "torch"), ({"mirror": "sharded", "n_shards": 4},
+                                                     "sharded")):
+        stream = make_stream(rmat_edge_list, **kw)
+        with GraphQueryService(stream, max_batch=4) as svc:
+            got = svc.submit("bfs", source=3).result(timeout=T)
+            np.testing.assert_array_equal(got, stream.query_batch([3], kind="bfs")[0])
+            sig = engine_signature(stream.engine(svc.backend))
+            assert sig[0] == sig0 and sig[1] == N
 
 
 def test_sessions_do_not_leak_versions(rmat_edge_list):

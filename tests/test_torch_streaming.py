@@ -16,6 +16,7 @@ import torch
 from repro.core import flat_graph as jfg
 from repro.core import graph as jG
 from repro.core.streaming import AspenStream as JaxStream
+from repro.core.streaming import run_concurrent as jax_run_concurrent
 from repro_torch.core import flat_graph as tfg
 from repro_torch.core import graph as tG
 from repro_torch.core import streaming as tst
@@ -203,16 +204,97 @@ def test_run_concurrent_serves_torch_engines(edges):
 
 
 def test_unported_options_and_missing_gpu_raise(edges, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _stream(edges, mirror="sharded")
-    compressed = _stream(edges, compressed=True)  # ported: the compressed mirror
+    """Every mirror option is ported now (the sharded mirror since item 12,
+    ``mirror=False`` since the F1 repair); a bad option and a missing GPU
+    still raise."""
+    from repro_torch.core import sharded_pool as tsp
+
+    sharded = _stream(edges, mirror="sharded", n_shards=2)
+    v = sharded.acquire()
+    assert isinstance(v.aux[tst.SHARDED_MIRROR], tsp.ShardedGraph) and tst.MIRROR not in v.aux
+    sharded.release(v)
+    compressed = _stream(edges, compressed=True)
     v = compressed.acquire()
     assert isinstance(v.aux[tst.MIRROR], tfg.CompressedPool)
     compressed.release(v)
+    mirrorless = _stream(edges, mirror=False)
+    v = mirrorless.acquire()
+    assert tst.MIRROR not in v.aux and tst.SHARDED_MIRROR not in v.aux
+    mirrorless.release(v)
     with pytest.raises(ValueError):
-        _stream(edges, mirror=False)
+        _stream(edges, mirror="bogus")
+    with pytest.raises(ValueError, match="resident mirror"):
+        _stream(edges, mirror=False, compressed=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no GPU"):
         tst.AspenStream(tG.build_graph(N, edges))
     with pytest.raises(RuntimeError, match="no GPU"):
         tfg.from_edges(N, edges)
+
+
+def test_mirrorless_stream_matches_reference():
+    """The F1 repro: ``mirror=False`` serves queries from a per-version
+    rebuild, bit-identical to the reference's."""
+    e = [[0, 1], [1, 2], [2, 3], [1, 0], [2, 1], [3, 2]]
+    got = tst.AspenStream(initial=tG.build_graph(4, e), mirror=False,
+                          device="cpu").query_batch([0])
+    want = JaxStream(initial=jG.build_graph(4, e), mirror=False).query_batch([0])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [[0, 0, 1, 2]])
+
+
+def test_mirrorless_stream_falls_back_to_rebuild(edges):
+    from repro_torch.core import traversal
+
+    s = _stream(edges, mirror=False)
+    base = traversal.FLAT_REBUILDS.count
+    eng = s.engine("torch")
+    assert traversal.FLAT_REBUILDS.count == base + 1  # the historical path
+    assert isinstance(eng, TorchEngine) and eng.device.type == "cpu"
+    assert s.engine("torch") is eng  # still version-cached
+    src = int(edges[0, 0])
+    np.testing.assert_array_equal(talg.bfs_depths(talg.bfs(eng, src), src),
+                                  talg.bfs_depths(talg.bfs(s.engine("numpy"), src), src))
+    # the publish path, the flat view, a subscription and the default
+    # backend all work without a mirror
+    with s.subscribe("cc") as sub:
+        s.insert_edges(np.array([[0, N - 1]]))
+        v = s.acquire()
+        assert tst.MIRROR not in v.aux
+        s.release(v)
+        np.testing.assert_array_equal(sub.refresh(), talg.connected_components(s.engine("torch")))
+    _assert_mirror_is_rebuild(s)
+    assert s._default_backend() == "torch"
+    np.testing.assert_array_equal(s.query_batch([src]), s.query_batch([src], backend="numpy"))
+
+
+@pytest.mark.parametrize("with_updates", [False, True])
+def test_run_concurrent_subscriber_staleness(edges, with_updates):
+    """``run_concurrent(subscription=)`` hands ``query_fn`` the live handle
+    and samples how many versions the writer is ahead after each call,
+    in both packages: with no writer every sample is 0; with one, the mean
+    lies between 0 and the number of publishes."""
+    keep, updates = tst.make_update_stream(edges, 120, seed=2)
+    updates = updates if with_updates else updates[:0]
+    out = {}
+    for name, stream in (("port", _stream(keep)),
+                         ("reference", JaxStream(jG.build_graph(N, keep)))):
+        calls = []
+        sub = stream.subscribe("cc")
+        stamp0 = stream.vg.current_stamp
+
+        def query_fn(handle):
+            assert handle is sub
+            handle.refresh()
+            calls.append(handle.stamp)
+
+        run = tst.run_concurrent if name == "port" else jax_run_concurrent
+        res = run(stream, updates, query_fn, duration_s=0.4, batch_size=20, subscription=sub)
+        published = stream.vg.current_stamp - stamp0
+        assert 0 < res.n_queries <= len(calls)  # one staleness sample per windowed call
+        assert 0.0 <= res.subscriber_staleness <= max(published, 0)
+        if not with_updates:
+            assert published == 0 and res.subscriber_staleness == 0.0
+        sub.close()
+        out[name] = res
+    assert out["port"]._fields == out["reference"]._fields

@@ -18,7 +18,7 @@ from repro.core.traversal import algorithms as jalg
 from repro.core.traversal import make_engine as j_make_engine
 from repro_torch.core import flat_graph as tfg
 from repro_torch.core import graph as tG
-from repro_torch.core.traversal import HOST_SYNCS, TorchEngine, make_engine
+from repro_torch.core.traversal import HOST_SYNCS, ShardedEngine, TorchEngine, make_engine
 from repro_torch.core.traversal import algorithms as talg
 from repro_torch.core.traversal import torch_backend as tb
 from repro_torch.data.rmat import rmat_edges, symmetrize
@@ -201,7 +201,8 @@ def test_make_engine_dispatch(plain):
     te, _, ne = plain
     assert isinstance(make_engine(te.g), TorchEngine)
     assert isinstance(make_engine(ne.snap, backend="torch", device="cpu"), TorchEngine)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_engine(te.g, backend="sharded")
+    sharded = make_engine(te.g, backend="sharded")  # ported: the sharded engine
+    assert isinstance(sharded, ShardedEngine) and sharded.m == te.m
+    np.testing.assert_array_equal(talg.bfs(sharded, 3), talg.bfs(te, 3))
     with pytest.raises(ValueError):
         make_engine(te.g, backend="jax")
