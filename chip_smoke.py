@@ -17,7 +17,10 @@ checks every result.  One JSON object per phase goes to stdout:
           ~66 M directed rMAT edges, drawn on the card) built straight
           into the device pool:
           engine_aux, PageRank, PageRank x8, BFS x16 (depths held against
-          scipy), and each kernel against its plain version at these shapes;
+          scipy), and each kernel against its plain version at these shapes
+          (scale_kernels: rows 1-2 on the dst-major lane at D = 1 and 8,
+          each candidate tile of the autotuner first, then the consult's
+          winner);
   compressed_kernels
           each chunked kernel against its plain version on ragged chunk
           counts: fixed int8 / int16 lanes with escapes, adaptive lanes
@@ -51,7 +54,8 @@ checks every result.  One JSON object per phase goes to stdout:
           ~63 M edges, drawn on the card) in the adaptive and the int16
           layout, plain and weighted: ``CompressedEngine`` held against the
           raw engine on the same edges, each chunked kernel timed against
-          its plain version and the raw kernel on the decoded lane (first
+          its plain version and the raw kernel on the decoded lane (every
+          candidate tile first, on the adaptive and int16 lanes; first
           showing that the scale phase's plain rMAT graph raises), and the
           two chunked decode kernels timed on each layout's source lane;
   decode_kernels
@@ -65,7 +69,12 @@ checks every result.  One JSON object per phase goes to stdout:
           (per-vertex neighbour lists chunked at vertex starts and hash
           heads, packed in uint16 and uint8), equal to
           ``chunks.unpack_deltas``, and the padded kernel timed at that
-          shape;
+          shape; then the paper's host algorithms on that version
+          (``core/algorithms``: MIS checked by ``verify_mis`` on its edges
+          made undirected, 2-hop held against the snapshot, Local-Cluster)
+          and ``flat_ctree``'s host set API on a card tree of 1 M keys
+          (``multi_insert`` / ``multi_delete`` against numpy's ``union1d``
+          / ``setdiff1d``, the given tree left as it was);
   scale_decode
           the padded kernel on the scale phase's pool dst lane cut into
           128-slot rows (67 M real ids), against its plain version and
@@ -79,7 +88,8 @@ checks every result.  One JSON object per phase goes to stdout:
           1e-4, the float reduces in both launch shapes (per shard, the
           default, and one launch over shard-offset keys), each
           collective's operand held below a quarter of the pool, and rows
-          1-2 at both shapes against their plain versions;
+          1-2 at both shapes against their plain versions (every candidate
+          tile at shard row 0's per-shard launch);
   sharded_stream
           ``AspenStream(mirror="sharded", n_shards=8)`` from the stream
           phase's current tree; four publishes applied to it and to the
@@ -94,8 +104,9 @@ checks every result.  One JSON object per phase goes to stdout:
           and compressed per row (adaptive and int16 layouts, plain and
           weighted): ``CompressedShardedEngine`` held against the raw
           sharded engine with the same checks, then rows 3-6 at both
-          launch shapes and rows 8-9 on the source lane against their
-          plain versions.
+          launch shapes (every candidate tile at shard row 0's per-shard
+          launch) and rows 8-9 on the source lane against their plain
+          versions.
 
   gnn_kernels
           the fanout and block SpMM kernels against their plain versions:
@@ -116,8 +127,9 @@ checks every result.  One JSON object per phase goes to stdout:
           at Cora's 2,708 vertices): ``gcn.forward`` on the flat graph
           held against the CPU, then ``ops.spmm_from_edges`` at D = 16
           and 1433 held against GCN's segment-sum aggregation and the
-          plain SpMM, two kernel calls held to the same bits, timed
-          beside CSR ``torch.sparse.mm``.
+          plain SpMM, both candidate tiles (128 and 256) held to it and
+          timed, two kernel calls at the winner held to the same bits,
+          timed beside CSR ``torch.sparse.mm``.
 
   flash_kernels
           the flash-decode kernel against its plain version in float32 and
@@ -156,7 +168,20 @@ The compressed engine decodes its lanes through the chunked decode
 kernels (``core/compressed.decode_rows`` on the card), so the compressed
 phases count their launches too.
 
-Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
+The kernel autotuner (``kernels/autotune.py``) sweeps each tuned
+kernel's candidate tiles the first time a shape bucket is consulted on
+the card, on the live path too (a sweep may land inside a timed query);
+every check above that sweeps the tiles holds each candidate against
+the plain version (rtol 1e-5, atol 1e-6 * max|out|; the SpMM atol
+1e-4), shows it gives the same bits twice, times it, and records the
+winner, its time beside the old fixed tile's (4096 slots; 128 x 128),
+and the sweep's own timings and seconds.  The disk table
+(``REPRO_TORCH_AUTOTUNE_CACHE``) is ``build/autotune_table.json``,
+removed at the start so each run sweeps anew.  After the phases: each
+phase's consults, sweeps and sweep seconds, then the table, the card's
+name and power limit, the kernel summary line (each tuned row with its
+tile and every candidate's time) and, last,
+``{"ok": true, "device": ...}``.
 Any mismatch or exception ends the run with a nonzero exit and no ``ok``
 line.  Without a GPU, or outside a checkout of the repo, it exits nonzero
 before printing any result.  It imports nothing of JAX.
@@ -166,6 +191,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -176,6 +202,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+# The autotuner's disk table (REPRO_TORCH_AUTOTUNE_CACHE), under build/.
+TUNE_TABLE = ROOT / "build" / "autotune_table.json"
 # Stream-phase PageRank (float32, 10 rounds) against the numpy engine's
 # float64, relative to each entry.
 PR_RTOL = 1e-5
@@ -230,6 +258,56 @@ def same_bits(fn, what: str) -> bool:
     if not torch.equal(fn(), fn()):
         raise AssertionError(f"{what}: two calls gave different bits")
     return True
+
+
+def tune_totals() -> dict:
+    """The autotuner's counts so far: cold consults, sweeps, the seconds
+    the sweeps took and their (uncounted) launches."""
+    from repro_torch.kernels import autotune
+
+    return {"consults": sum(autotune.CONSULTS.values()), "sweeps": sum(autotune.SWEEPS.values()),
+            "sweep_s": sum(autotune.SWEEP_SECONDS.values()),
+            "sweep_launches": sum(autotune.SWEEP_LAUNCHES.values())}
+
+
+def tune_since(before: dict) -> dict:
+    """``tune_totals`` since ``before`` (a phase's own consults and sweeps)."""
+    return {k: v - before[k] for k, v in tune_totals().items()}
+
+
+def tile_sweep(kern_at, want, what: str, kernel: str, shape: dict, consult, rtol: float = 1e-5,
+               atol: float | None = None) -> dict:
+    """Every candidate tile of a tuned kernel at one main-path shape:
+    ``kern_at(tile)`` held against the plain version's ``want`` (rtol,
+    atol as ``check_close``), the same bits twice, and timed; then
+    ``consult()`` (the ``ops`` call without a tile, which sweeps this
+    shape's key if no earlier call has) held against ``want``, and its
+    winner read back.  Raises on any mismatch."""
+    from repro_torch.kernels import autotune
+
+    tiles = [next(iter(c.values())) for c in autotune.CANDIDATES[kernel]]
+    default = next(iter(autotune.DEFAULTS[kernel].values()))
+    key = autotune.cache_key(kernel, "cuda", shape)
+    swept_before = autotune.SWEEPS[key]
+    ms = {}
+    for t in tiles:
+        f = lambda t=t: kern_at(t)  # noqa: E731
+        check_close(f(), want, f"{what} tile {t}", rtol, atol)
+        same_bits(f, f"{what} tile {t}")
+        ms[t] = time_ms(f)
+    check_close(consult(), want, f"{what} tuned", rtol, atol)
+    tile = next(iter(autotune.get_params(kernel, shape, backend="cuda").values()))
+    if tile not in tiles:
+        raise AssertionError(f"{what}: the sweep chose {tile}, not a candidate of {tiles}")
+    return {
+        "key": autotune._key_str(key), "tile": tile, "tile_ms": ms[tile],
+        "old_tile": default, "old_tile_ms": ms[default], "candidates_ms": ms,
+        "winner_over_old": ms[tile] / ms[default],
+        "swept_on_live_path": swept_before > 0, "sweeps": autotune.SWEEPS[key],
+        "sweep_s": autotune.SWEEP_SECONDS.get(key),
+        "sweep_candidates_ms": {next(iter(c.values())): 1e3 * sec
+                                for c, sec in autotune.TIMINGS.get(key, [])},
+    }
 
 
 def rmat_symmetric_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
@@ -596,13 +674,16 @@ def phase_scale_kernels(g, aux) -> list:
     """Each kernel at the scale phase's shapes (the PageRank reduce:
     dst_sorted over the whole pool, n_out = n, D = 1 and the x8 lanes)
     against its plain version, per synchronised call and back to back,
-    with two calls giving the same bits.  Yardsticks: a sparse CSR product
+    with two calls giving the same bits.  Every candidate tile first
+    (``tile_sweep``); the rest at the autotuner's winner, the tile the
+    main path launches with.  Yardsticks: a sparse CSR product
     on the same row pointer (weighted), and for the unweighted kernel the
     fastest of ``index_add_``, the CSR product with unit values and
     ``torch.segment_reduce`` over the row offsets (``library``)."""
     import torch
 
     from repro_torch.core.traversal import torch_backend as tb
+    from repro_torch.kernels import ops
     from repro_torch.kernels import segment_reduce as sr
 
     n = g.n
@@ -624,16 +705,21 @@ def phase_scale_kernels(g, aux) -> list:
         ext = torch.zeros((n + 1, msg.shape[1]), device="cuda")
         for name, weighted in (("segment_sum", False), ("segment_sum_weighted", True)):
             if weighted:
-                kern = lambda: sr.segment_sum_weighted_sorted(dst, w, msg, n)  # noqa: E731
+                kern_at = lambda t: sr.segment_sum_weighted_sorted(dst, w, msg, n, t)  # noqa: E731
+                consult = lambda: ops.segment_sum_weighted(dst, w, msg, n)  # noqa: E731
                 plain = lambda: sr.segment_sum_weighted_sorted_plain(dst, w, msg, n)  # noqa: E731
                 libs = {"csr_sparse_mm": lambda: torch.sparse.mm(csr_w, msg)}
             else:
-                kern = lambda: sr.segment_sum_sorted(dst, msg, n)  # noqa: E731
+                kern_at = lambda t: sr.segment_sum_sorted(dst, msg, n, t)  # noqa: E731
+                consult = lambda: ops.segment_sum(dst, msg, n)  # noqa: E731
                 plain = lambda: sr.segment_sum_sorted_plain(dst, msg, n)  # noqa: E731
                 libs = {"index_add_": lambda: ext.zero_().index_add_(0, idx, msg),
                         "csr_sparse_mm_unit": lambda: torch.sparse.mm(csr_1, msg),
                         "segment_reduce_offsets": lambda: torch.segment_reduce(
                             msg[:e_valid], "sum", offsets=offs, axis=0)}
+            tune = tile_sweep(kern_at, plain(), f"scale {name} D={D}", name,
+                              {"E": int(dst.shape[0]), "n": n, "D": D}, consult)
+            kern = lambda: kern_at(tune["tile"])  # noqa: E731
             err = check_close(kern(), plain(), f"scale {name} D={D}")
             for lib_name, lib in libs.items():  # the yardsticks compute the same function
                 check_close(lib()[:n], plain(), f"scale {name} D={D} {lib_name}")
@@ -646,8 +732,9 @@ def phase_scale_kernels(g, aux) -> list:
                 "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
                 "plain_ms": time_ms(plain), "library_ms": lib_ms[best], "library": best,
                 "libraries_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "tune": tune,
             })
-    emit({"phase": "scale_kernels", "cases": summary})
+    emit({"phase": "scale_kernels", "cases": summary, "autotune": tune_totals()})
     return summary
 
 # ---------------------------------------------------------------------------
@@ -938,10 +1025,103 @@ def phase_host_decode(stream) -> tuple:
     bound_ms, bound_by = padded_decode_bound(R, L)
     out.update(chunks=R, max_len=L, padded_bytes=4 * R * L, max_abs_err=err,
                ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(lib),
-               bound_ms=bound_ms, bound_by=bound_by, launches=launches,
-               phase_s=time.perf_counter() - t0)
+               bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+    out["algorithms"] = host_algorithms(stream, snap, offsets, nbrs)
+    out["set_api"] = card_set_api()
+    out["phase_s"] = time.perf_counter() - t0
     emit(out)
     return launches
+
+
+# Local-Cluster's mass cut-off on the stream graph: at the default 1e-6
+# the walk's mass spreads over ~137 K of its 262 K vertices in 10 rounds of
+# host Python (about a minute); 1e-4 keeps at most 10^4 a round.
+LOCAL_CLUSTER_EPS = 1e-4
+
+
+def host_algorithms(stream, snap, offsets, nbrs) -> dict:
+    """The paper's host algorithms (``core/algorithms``) on the stream's
+    final version.  MIS, checked by ``verify_mis``, on its snapshot's
+    edges closed under reversal, held in ``baselines.StaticCSR`` (both
+    take any store with ``n`` and ``neighbors``): MIS is defined on an
+    undirected graph, and the final version is not symmetric, since the
+    stream's base graph (``make_update_stream``) lacks one direction of
+    each insert not yet replayed.  2-hop and Local-Cluster (at
+    ``LOCAL_CLUSTER_EPS``) on its tree from a vertex of median degree,
+    2-hop held against the snapshot's neighbour lists."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import baselines as bl
+
+    src_ids = np.repeat(np.arange(snap.n, dtype=np.int64), np.diff(offsets))
+    t = time.perf_counter()
+    und = bl.StaticCSR(snap.n, np.concatenate([np.stack([src_ids, nbrs], 1),
+                                                np.stack([nbrs, src_ids], 1)]))
+    out = {"undirected_edges": int(und.m), "directed_edges": int(nbrs.size),
+           "static_csr_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    in_set = alg.mis(und, seed=SEED)
+    out["mis_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if not alg.verify_mis(und, in_set):
+        raise AssertionError("host_decode: mis is not a maximal independent set")
+    out.update(verify_mis_s=time.perf_counter() - t, mis_size=int(in_set.sum()))
+    deg = np.diff(offsets)
+    live = np.flatnonzero(deg > 0)
+    src = int(live[np.argsort(deg[live], kind="stable")[live.size // 2]])
+    v = stream.acquire()
+    try:
+        t = time.perf_counter()
+        th = alg.two_hop(v.graph, src)
+        out["two_hop_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cluster = alg.local_cluster(v.graph, src, eps=LOCAL_CLUSTER_EPS)
+        out["local_cluster_s"] = time.perf_counter() - t
+    finally:
+        stream.release(v)
+    one = nbrs[offsets[src]:offsets[src + 1]]
+    want = np.unique(np.concatenate([one] + [nbrs[offsets[u]:offsets[u + 1]] for u in one]))
+    if not np.array_equal(th, want[want != src]):
+        raise AssertionError("host_decode: two_hop differs from the snapshot's 2-hop set")
+    if src not in cluster.tolist() or not np.array_equal(cluster, np.unique(cluster)):
+        raise AssertionError("host_decode: local_cluster lost its source or is not sorted")
+    out.update(src=src, src_degree=int(deg[src]), two_hop=int(th.size), cluster=int(cluster.size),
+               local_cluster_eps=LOCAL_CLUSTER_EPS)
+    return out
+
+
+def card_set_api(n_keys: int = 1 << 20, batch: int = 1 << 17) -> dict:
+    """``flat_ctree``'s host set API on a card tree of about n_keys keys:
+    ``multi_insert`` (rank-merge and sort) and ``multi_delete`` of a batch
+    that half overlaps it, held against numpy's ``union1d`` and
+    ``setdiff1d``; the tree given to each call is left as it was."""
+    import torch
+
+    from repro_torch.core import flat_ctree as fct
+
+    rng = np.random.default_rng(SEED + 8)
+    keys = rng.integers(0, 1 << 30, n_keys).astype(np.int32)
+    add = np.concatenate([rng.integers(0, 1 << 30, batch // 2), keys[: batch // 2]]).astype(np.int32)
+    t = fct.from_array(keys, device="cuda")
+    base = fct.to_array(t).copy()
+    out = {"keys": int(base.size), "batch": int(add.size)}
+    for optimized in (True, False):
+        t0 = time.perf_counter()
+        t2 = fct.multi_insert(t, add, optimized=optimized)
+        torch.cuda.synchronize()
+        out[f"multi_insert_{'merge' if optimized else 'sort'}_s"] = time.perf_counter() - t0
+        if t2.data.device.type != "cuda" or not np.array_equal(fct.to_array(t2),
+                                                               np.union1d(base, add)):
+            raise AssertionError("set_api: multi_insert differs from union1d")
+    t0 = time.perf_counter()
+    t3 = fct.multi_delete(t2, add)
+    torch.cuda.synchronize()
+    out["multi_delete_s"] = time.perf_counter() - t0
+    if not np.array_equal(fct.to_array(t3), np.setdiff1d(np.union1d(base, add), add)):
+        raise AssertionError("set_api: multi_delete differs from setdiff1d")
+    if not np.array_equal(fct.to_array(t), base) or not fct.find(t3, int(np.setdiff1d(base, add)[0])):
+        raise AssertionError("set_api: a call changed the tree it was given")
+    out["capacity"] = fct.capacity(t2)
+    return out
 
 
 def phase_scale_decode(g) -> dict:
@@ -1002,8 +1182,9 @@ def ascending_lane(R: int, kind: str, seed: int, esc_every: int, tail: int = 37)
     return np.minimum(vals, n_out).astype(np.int32), n_out
 
 
-def chunked_call(s, msg, n_out, w=None, plain=False):
-    """The chunked kernel for stream ``s``'s layout (or its plain version)."""
+def chunked_call(s, msg, n_out, w=None, plain=False, tile=4096):
+    """The chunked kernel for stream ``s``'s layout at ``tile`` (or its
+    plain version)."""
     from repro_torch.kernels import segment_reduce as sr
 
     args = (s.anchors, s.deltas, s.ovf_pos, s.ovf_add)
@@ -1013,12 +1194,30 @@ def chunked_call(s, msg, n_out, w=None, plain=False):
         return sr.segment_sum_weighted_chunked_plain(*args, w, msg, n_out, s.hi, s.wide)
     if s.hi is None:
         if w is None:
-            return sr.segment_sum_sorted_chunked(*args, msg, n_out)
-        return sr.segment_sum_weighted_chunked(*args, w, msg, n_out)
+            return sr.segment_sum_sorted_chunked(*args, msg, n_out, tile)
+        return sr.segment_sum_weighted_chunked(*args, w, msg, n_out, tile)
     a, d, p, v = args
     if w is None:
-        return sr.segment_sum_sorted_chunked_adaptive(a, d, s.hi, s.wide, p, v, msg, n_out)
-    return sr.segment_sum_weighted_chunked_adaptive(a, d, s.hi, s.wide, p, v, w, msg, n_out)
+        return sr.segment_sum_sorted_chunked_adaptive(a, d, s.hi, s.wide, p, v, msg, n_out, tile)
+    return sr.segment_sum_weighted_chunked_adaptive(a, d, s.hi, s.wide, p, v, w, msg, n_out,
+                                                    tile)
+
+
+def chunked_tile_sweep(s, msg, n_out, w, want, what: str) -> dict:
+    """``tile_sweep`` of the chunked kernel for stream ``s``'s layout; the
+    consult goes through ``ops``, under the fixed-width key as the
+    engines' calls do."""
+    from repro_torch.kernels import ops
+
+    args = (s.anchors, s.deltas, s.ovf_pos, s.ovf_add)
+    kernel = "segment_sum_chunked" if w is None else "segment_sum_weighted_chunked"
+    if w is None:
+        consult = lambda: ops.segment_sum_chunked(*args, msg, n_out, hi=s.hi, wide=s.wide)  # noqa: E731
+    else:
+        consult = lambda: ops.segment_sum_weighted_chunked(*args, w, msg, n_out, hi=s.hi,  # noqa: E731
+                                                           wide=s.wide)
+    return tile_sweep(lambda t: chunked_call(s, msg, n_out, w, tile=t), want, what, kernel,
+                      {"R": s.deltas.shape[0], "n": n_out, "D": msg.shape[1]}, consult)
 
 
 def chunked_name(s, weighted: bool) -> str:
@@ -1675,6 +1874,7 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
     from repro_torch.kernels import segment_reduce as sr
 
     t_phase = time.perf_counter()
+    tuned = tune_totals()
     out = {"phase": "compressed_scale", "plain_rmat_2^22_raises": plain_raises,
            "allocated_at_start_bytes": torch.cuda.memory_allocated()}
 
@@ -1777,8 +1977,9 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
         e_valid = int((dec < n).sum())
         for D in (1, 8):
             msg = torch.rand((s.length, D), generator=gen, device="cuda")
-            kern = lambda: chunked_call(s, msg, n, w)  # noqa: E731
             plain = lambda: chunked_call(s, msg, n, w, plain=True)  # noqa: E731
+            tune = chunked_tile_sweep(s, msg, n, w, plain(), f"compressed_scale {name} D={D}")
+            kern = lambda: chunked_call(s, msg, n, w, tile=tune["tile"])  # noqa: E731
             if weighted:
                 raw_k = lambda: sr.segment_sum_weighted_sorted(dec, w, msg, n)  # noqa: E731
             else:
@@ -1792,7 +1993,7 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
                 "max_abs_err": err, "same_bits": same_bits(kern, f"compressed_scale {name} D={D}"),
                 "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
                 "plain_ms": time_ms(plain), "raw_kernel_ms": time_ms(raw_k),
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "tune": tune,
             })
         del dec
 
@@ -1817,7 +2018,8 @@ def phase_compressed_scale(plain_raises: str) -> tuple:
             # the wrapper's host time against the device's, per call
             "split": launch_split(kern) if s.hi is not None else None,
         })
-    out.update(kernels=cases, decode_kernels=decode_cases, phase_s=time.perf_counter() - t_phase)
+    out.update(kernels=cases, decode_kernels=decode_cases, autotune=tune_since(tuned),
+               phase_s=time.perf_counter() - t_phase)
     emit(out)
     return launches, cases + decode_cases
 
@@ -1985,9 +2187,12 @@ def sharded_kernel_cases(eng, eng_w, gen, what: str) -> list:
     the engine's) and the one launch over all rows under shard-offset keys
     (n_out = S * (n + 1)); D = 1 and 8, against the plain version, twice
     to the same bits, timed beside ``torch.segment_reduce`` over the key's
-    offsets (row 1) and a CSR product (row 2)."""
+    offsets (row 1) and a CSR product (row 2).  At the per-shard launch,
+    the engine's, every candidate tile first (``tile_sweep``), then the
+    rest at the winner."""
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels import segment_reduce as sr
 
     a, n = eng.aux, eng.n
@@ -2008,14 +2213,21 @@ def sharded_kernel_cases(eng, eng_w, gen, what: str) -> list:
             msg = torch.rand((key.shape[0], D), generator=gen, device="cuda") * live[:, None]
             for name, weighted in (("segment_sum", False), ("segment_sum_weighted", True)):
                 if weighted:
-                    kern = lambda: sr.segment_sum_weighted_sorted(key, w, msg, n_out)  # noqa: E731
+                    kern_at = lambda t: sr.segment_sum_weighted_sorted(key, w, msg, n_out, t)  # noqa: E731
+                    consult = lambda: ops.segment_sum_weighted(key, w, msg, n_out)  # noqa: E731
                     plain = lambda: sr.segment_sum_weighted_sorted_plain(key, w, msg, n_out)  # noqa: E731
                     lib = lambda: torch.sparse.mm(csr_w, msg)  # noqa: E731
                 else:
-                    kern = lambda: sr.segment_sum_sorted(key, msg, n_out)  # noqa: E731
+                    kern_at = lambda t: sr.segment_sum_sorted(key, msg, n_out, t)  # noqa: E731
+                    consult = lambda: ops.segment_sum(key, msg, n_out)  # noqa: E731
                     plain = lambda: sr.segment_sum_sorted_plain(key, msg, n_out)  # noqa: E731
                     lib = lambda: torch.segment_reduce(msg, "sum", offsets=offs.long(),  # noqa: E731
                                                        axis=0)
+                tune = None
+                if shape == "per_shard":
+                    tune = tile_sweep(kern_at, plain(), f"{what} {shape} {name} D={D}", name,
+                                      {"E": int(key.shape[0]), "n": n_out, "D": D}, consult)
+                kern = lambda: kern_at(tune["tile"] if tune else 4096)  # noqa: E731
                 err = check_close(kern(), plain(), f"{what} {shape} {name} D={D}")
                 check_close(lib(), plain(), f"{what} {shape} {name} D={D} library")
                 bound_ms, bound_by = bound(e_valid, n_out, D, weighted)
@@ -2025,7 +2237,7 @@ def sharded_kernel_cases(eng, eng_w, gen, what: str) -> list:
                     "same_bits": same_bits(kern, f"{what} {shape} {name} D={D}"),
                     "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
                     "plain_ms": time_ms(plain, reps=3), "library_ms": time_ms(lib, reps=3),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "tune": tune,
                 })
     return cases
 
@@ -2176,9 +2388,12 @@ def phase_sharded_compressed() -> tuple:
                 for D in (1, 8):
                     # pad lanes carry 0, as the engine's masked messages do
                     msg = torch.rand((s.length, D), generator=gen, device="cuda") * live[:, None]
-                    kern = lambda: chunked_call(s, msg, n_out, w)  # noqa: E731
                     plain = lambda: chunked_call(s, msg, n_out, w, plain=True)  # noqa: E731
                     what = f"sharded_compressed {name} {shape} D={D}"
+                    tune = (chunked_tile_sweep(s, msg, n_out, w, plain(), what)
+                            if shape == "per_shard" else None)
+                    kern = lambda: chunked_call(s, msg, n_out, w,  # noqa: E731
+                                                tile=tune["tile"] if tune else 4096)
                     err = check_close(kern(), plain(), what)
                     bound_ms, bound_by = chunked_bound(s, e_valid, n_out, D, weighted)
                     cases.append({
@@ -2187,7 +2402,7 @@ def phase_sharded_compressed() -> tuple:
                         "max_abs_err": err, "same_bits": same_bits(kern, what),
                         "ms": time_ms(kern), "pipelined_ms": time_ms_pipelined(kern),
                         "plain_ms": time_ms(plain, reps=3), "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None,
+                        "bound_by": bound_by, "library_ms": None, "tune": tune,
                     })
         s = cz.flatten_rows(cz.row_prefix(caux.srcbd_c, cap // cz.CHUNK))  # as the reduce reads it
         kern, plain = decode_calls(s)
@@ -2619,14 +2834,22 @@ def phase_gnn_full() -> dict:
         raise AssertionError(f"gnn_full: {out['launches']} (2 block_spmm launches expected)")
     a = torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]), coeff,
                                 (n, n)).coalesce().to_sparse_csr()
-    mask_np, tiles_np, _ = csr_spmm.tiles_from_edges(n, src_h, dst_h, vals_h)
-    mask, tiles = torch.from_numpy(mask_np).cuda(), torch.from_numpy(tiles_np).cuda()
+    built = {}  # tile -> (mask, tiles) on the card, host arrays
+    for t in csr_spmm.TILES:
+        m_np, t_np, _ = csr_spmm.tiles_from_edges(n, src_h, dst_h, vals_h, t, t)
+        built[t] = (torch.from_numpy(m_np).cuda(), torch.from_numpy(t_np).cuda(), m_np, t_np)
     cases = []
     for D, xd, got, secs in runs:
         res = {"D": D, "spmm_from_edges_s": secs}
         agg = common.aggregate(xd[src.long()] * coeff[:, None], dst, n, "sum")
         res["vs_segment_sum_max_abs_err"] = check_close(got, agg, f"gnn_full spmm D={D} vs segsum",
                                                      1e-5, 1e-4)
+        want = csr_spmm.block_spmm_plain(*built[csr_spmm.TILE][:2], xd)[:n]
+        res["tune"] = tile_sweep(lambda t: csr_spmm.block_spmm(*built[t][:2], xd)[:n], want,
+                                 f"gnn_full block_spmm D={D}", "spmm", {"n": n, "m": m},
+                                 lambda: ops.spmm_from_edges(n, src_h, dst_h, xd, vals_h)[:n],
+                                 1e-5, 1e-4)
+        mask, tiles, mask_np, tiles_np = built[res["tune"]["tile"]]
         first = csr_spmm.block_spmm(mask, tiles, xd)
         if not torch.equal(first, csr_spmm.block_spmm(mask, tiles, xd)):
             raise AssertionError(f"gnn_full block_spmm D={D}: two calls differ in their bits")
@@ -2636,7 +2859,7 @@ def phase_gnn_full() -> dict:
         res["bound_ms"], res["bound_by"], res["live_tiles"], res["nnz"] = spmm_bound(
             mask_np, tiles_np, n, D)
         res["tiles"] = int(mask_np.size)
-        res["workspace_bytes"] = csr_spmm.workspace_bytes(*mask_np.shape)
+        res["workspace_bytes"] = csr_spmm.workspace_bytes(*mask_np.shape, res["tune"]["tile"])
         res["ms"] = time_ms(lambda: csr_spmm.block_spmm(mask, tiles, xd))
         res["plain_ms"] = time_ms(lambda: csr_spmm.block_spmm_plain(mask, tiles, xd))
         res["library_ms"] = time_ms(lambda: torch.sparse.mm(a, xd))
@@ -3082,6 +3305,17 @@ def sharded_row(cases, name: str) -> dict | None:
                               "max_abs_err", "same_bits") if k in c}
 
 
+def tile_fields(cases, name: str, shape: str | None = None) -> dict:
+    """A kernel row's tile at its D = 1 case (``shape``: that launch shape
+    only): the winner, every candidate's ms, the ms at the old fixed tile."""
+    c = next((c for c in cases if c["name"] == name and c.get("D", 1) == 1
+              and c.get("tune") and (shape is None or c.get("shape") == shape)), None)
+    if c is None:
+        return {}
+    t = c["tune"]
+    return {"tile": t["tile"], "tile_ms": t["candidates_ms"], "old_tile_ms": t["old_tile_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -3093,6 +3327,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the autotuner's disk table: swept anew in each run (the file is
+    # removed first), written for later processes, printed at the end
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(TUNE_TABLE)
+    TUNE_TABLE.unlink(missing_ok=True)
     # float32 products in full float32 (the default, set here explicitly):
     # the plain versions and the float32 model comparisons depend on it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3103,11 +3341,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
 
     seconds = {}  # wall time of each phase, host clock
+    tuning = {}  # each phase's cold consults, sweeps and sweep seconds
 
     def run(name, fn, *args):
-        t = time.perf_counter()
+        t, before = time.perf_counter(), tune_totals()
         res = fn(*args)
         seconds[name] = time.perf_counter() - t
+        tuning[name] = tune_since(before)
         return res
 
     t_start = time.perf_counter()
@@ -3151,6 +3391,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_serve = run("lm_serve", phase_lm_serve)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
+    emit({"autotune_by_phase": {k: v for k, v in tuning.items() if v["consults"]},
+          "autotune_total": tune_totals()})
 
     summary = []
     for name in ("segment_sum", "segment_sum_weighted"):
@@ -3176,6 +3418,8 @@ def main() -> int:
             "library": c["library"],
             "pipelined_ms": c["pipelined_ms"],
             "same_bits": c["same_bits"],
+            **tile_fields(cases, name),
+            "sharded_tile": tile_fields(sh_cases, name, "per_shard"),
         })
     replaces = dict(zip(CHUNKED_KERNELS, ("229", "271", "410", "454")))
     for name in CHUNKED_KERNELS:
@@ -3197,6 +3441,8 @@ def main() -> int:
             "raw_kernel_ms": c["raw_kernel_ms"],
             "pipelined_ms": c["pipelined_ms"],
             "same_bits": c["same_bits"],
+            **tile_fields(ccases, name),
+            "sharded_tile": tile_fields(shc_cases, name, "per_shard"),
         })
     replaces = dict(zip(DECODE_KERNELS, ("83", "162", "210")))
     for name in DECODE_KERNELS:
@@ -3249,8 +3495,12 @@ def main() -> int:
         "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"],
         "library_ms": c["library_ms"],
-        "d16": {key: c16[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "d16": {**{key: c16[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "tile": c16["tune"]["tile"], "tile_ms": c16["tune"]["candidates_ms"]},
         "workspace_bytes": c["workspace_bytes"],
+        "tile": c["tune"]["tile"],
+        "tile_ms": c["tune"]["candidates_ms"],
+        "old_tile_ms": c["tune"]["old_tile_ms"],
     })
     k = long["kernel"]
     summary.append({
@@ -3272,6 +3522,7 @@ def main() -> int:
         "decode_32k": {key: d32k["kernel"][key]
                        for key in ("ms", "pipelined_ms", "bound_ms", "library_ms", "route")},
     })
+    emit({"autotune_table": json.loads(TUNE_TABLE.read_text())})
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

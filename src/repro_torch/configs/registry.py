@@ -1,9 +1,10 @@
-"""Architecture registry, the dense-LM and GNN parts: ``LM_SHAPES``,
-``GNNConfig``, ``GNN_SHAPES``, ``ArchSpec`` and ``get`` over the archs
-the port has.
+"""Architecture registry, the dense-LM, GNN and stream parts:
+``LM_SHAPES``, ``GNNConfig``, ``GNN_SHAPES``, ``STREAM_SHAPES``,
+``StreamConfig``, ``ArchSpec`` and ``get`` over the archs the port has.
 
-Counterpart of ``repro/configs/registry.py:19-41``, ``:56-79`` and
-``:111-115``.  Each config module defines FULL (the assigned numbers),
+Counterpart of ``repro/configs/registry.py:19-41``, ``:49-53``,
+``:56-79``, ``:95-99`` and ``:111-115``.  ``aspen-stream`` is the paper's
+own configuration.  Each config module defines FULL (the assigned numbers),
 REDUCED (smoke scale) and the shape set of its family.  The LM configs
 are ``models.transformer.LMConfig``s.
 """
@@ -37,10 +38,17 @@ GNN_SHAPES: Dict[str, Dict[str, Any]] = {
 }
 
 
+STREAM_SHAPES: Dict[str, Dict[str, Any]] = {
+    "update_2m": {"pool_edges": 1 << 28, "batch_edges": 1 << 21, "n_nodes": 1 << 25, "kind": "update"},
+    "query_bfs": {"pool_edges": 1 << 28, "n_nodes": 1 << 25, "kind": "query"},
+    "decode_pool": {"pool_edges": 1 << 28, "n_nodes": 1 << 25, "kind": "decode"},
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # lm | gnn (the port's families so far)
+    family: str  # lm | gnn | stream (the port's families so far)
     full: Any  # family config object (exact assigned numbers)
     reduced: Any  # smoke-scale config
     shapes: Dict[str, Dict[str, Any]]
@@ -62,7 +70,15 @@ class GNNConfig:
     n_classes: int = 64
 
 
-ARCH_IDS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b", "graphsage-reddit", "gcn-cora"]
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    name: str
+    b: int = 256
+    seed: int = 0x9E3779B9
+
+
+ARCH_IDS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b", "graphsage-reddit", "gcn-cora",
+            "aspen-stream"]
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

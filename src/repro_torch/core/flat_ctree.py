@@ -1,6 +1,8 @@
 """Flat C-tree on the device: a sorted element pool plus a valid count.
 
-Counterpart of ``repro/core/flat_ctree.py:41-341``.  The C-tree's
+Counterpart of ``repro/core/flat_ctree.py:41-341``, with its host-driven
+set API (``empty``, ``find``, ``chunk_ids``, ``multi_insert``,
+``multi_delete``) over the same device operations.  The C-tree's
 insight — hash-canonical chunk boundaries over a sorted pool — survives
 in flat form:
 
@@ -45,6 +47,13 @@ class FlatCTree(NamedTuple):
 
 def capacity(t: FlatCTree) -> int:
     return t.data.shape[0]
+
+
+def empty(cap: int, dtype=torch.int32, device=None) -> FlatCTree:
+    """A pool of ``cap`` sentinel slots and no element."""
+    dev = resolve(device)
+    return FlatCTree(torch.full((cap,), sentinel_for(dtype), dtype=dtype, device=dev),
+                     torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def from_array(
@@ -123,6 +132,10 @@ def member(t: FlatCTree, queries: torch.Tensor) -> torch.Tensor:
     return (t.data[idx] == queries) & (queries != sentinel_for(t.data.dtype))
 
 
+def find(t: FlatCTree, e: int) -> bool:
+    return bool(member(t, torch.tensor([e], dtype=t.data.dtype, device=t.data.device))[0])
+
+
 # ---------------------------------------------------------------------------
 # head / chunk structure (canonical, derived)
 # ---------------------------------------------------------------------------
@@ -132,6 +145,11 @@ def head_mask(t: FlatCTree, b: int, seed: int) -> torch.Tensor:
     """is_head over valid elements (one hash pass)."""
     valid = torch.arange(t.data.shape[0], device=t.data.device) < t.n
     return is_head_torch(t.data, b, seed) & valid
+
+
+def chunk_ids(t: FlatCTree, b: int, seed: int) -> torch.Tensor:
+    """int32 chunk id per slot: the prefix is 0, the tail of the i-th head i + 1."""
+    return torch.cumsum(head_mask(t, b, seed), 0, dtype=torch.int32)
 
 
 def num_heads(t: FlatCTree, b: int, seed: int) -> int:
@@ -274,3 +292,23 @@ def grown_capacity(n_needed: int) -> int:
     """Power-of-two quantization of pool capacities (amortized growth)."""
     return max(8, int(2 ** np.ceil(np.log2(n_needed + 1))))
 
+
+def multi_insert(
+    t: FlatCTree,
+    values: np.ndarray,
+    optimized: bool = True,
+    vals: np.ndarray | None = None,
+) -> FlatCTree:
+    """Host-driven batch insert: build the batch on t's device, pick a
+    capacity, run the union.  t is left as it was (a new pool)."""
+    batch = from_array(values, dtype=t.data.dtype, vals=vals, device=t.data.device)
+    need = int(t.n) + int(batch.n)
+    cap = max(capacity(t), grown_capacity(need))
+    fn = union_merge if optimized else union_sort
+    return fn(t, batch, cap)
+
+
+def multi_delete(t: FlatCTree, values: np.ndarray) -> FlatCTree:
+    """Host-driven batch delete (a new pool of t's capacity)."""
+    batch = from_array(values, dtype=t.data.dtype, device=t.data.device)
+    return difference(t, batch, capacity(t))

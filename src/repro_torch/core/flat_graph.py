@@ -132,6 +132,11 @@ def degrees(g: FlatGraph) -> torch.Tensor:
     return torch.diff(g.offsets)
 
 
+def edge_endpoints(g: FlatGraph):
+    """(src, dst) int32 per pool slot (padding slots give ids out of range)."""
+    return unpack(g.keys)
+
+
 def has_edge(g: FlatGraph, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     q = pack(src, dst)
     idx = torch.searchsorted(g.keys, q).clamp_max_(g.keys.shape[0] - 1)

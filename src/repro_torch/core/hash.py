@@ -66,3 +66,8 @@ def is_head_torch(x: torch.Tensor, b: int, seed: int = int(_DEFAULT_SEED)) -> to
         return (h & (b - 1)) == 0
     return (h % b) == 0
 
+
+def priority_np(x, seed: int | np.uint32 = _DEFAULT_SEED):
+    """Treap priorities for the head tree (an independent member of the family)."""
+    return hash32_np(np.asarray(x), np.uint32(seed) ^ np.uint32(0xDEADBEEF))
+

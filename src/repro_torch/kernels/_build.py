@@ -13,6 +13,7 @@ headers takes minutes to compile where a plain C interface takes seconds.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -171,16 +172,37 @@ def launch(name: str, fn_name: str, args: list, device: torch.device) -> None:
 _SCRATCH_LOCK = threading.Lock()
 
 
+# A thread inside ``counting_into`` counts its launches there instead.
+_COUNTS = threading.local()
+
+
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Within this block, the launches this thread makes through
+    ``launch_with_scratch`` count in ``counts`` (missing keys start at 0)
+    instead of their kernel's own counter: the autotuner's sweeps stay
+    off the main path's counts."""
+    prev = getattr(_COUNTS, "into", None)
+    _COUNTS.into = counts
+    try:
+        yield counts
+    finally:
+        _COUNTS.into = prev
+
+
 def launch_with_scratch(launches: Callable[[], Any], counts: dict, *keys: str) -> Any:
     """The rule for a call that uses per-stream state (a ``scratch``
     buffer, a look-back epoch): ``launches()`` fetches that state and
     makes the call's CUDA launches, then ``counts[key]`` goes up by one
     for each of ``keys``, all under one lock.  Returns what ``launches``
-    returns."""
+    returns.  Inside ``counting_into`` the counts go there instead."""
+    into = getattr(_COUNTS, "into", None)
+    if into is not None:
+        counts = into
     with _SCRATCH_LOCK:
         out = launches()
         for key in keys:
-            counts[key] += 1
+            counts[key] = counts.get(key, 0) + 1
     return out
 
 

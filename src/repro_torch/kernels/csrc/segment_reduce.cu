@@ -23,12 +23,16 @@
 //   * One pass over the edges and no bounds array.  The earlier first pass
 //     read dst to write 8 bytes a row that the second read back before its
 //     first message load: a chain of dependent loads per row and 16 extra
-//     bytes a row.  Here a block of 256 threads takes a tile of 4096
-//     consecutive slots (each warp 512) and issues its loads at once.
-//   * Edges, not rows, are the unit of work.  At D = 1 a thread owns 16
-//     consecutive slots and loads their keys, messages and weights as
-//     16-byte vectors, so a warp's loads are whole lines.  At D > 1 a group
-//     of T lanes owns 16 T consecutive slots, 4 at a step, each lane 4
+//     bytes a row.  Here a block of 256 threads takes a tile of kTile
+//     consecutive slots (each warp kTile / 8) and issues its loads at once.
+//     kTile is a template parameter, 2048, 4096 or 8192 slots, chosen per
+//     shape by the wrapper's autotuner (kernels/autotune.py); 4096 is the
+//     default.
+//   * Edges, not rows, are the unit of work.  At D = 1 a thread owns
+//     kTile / 256 consecutive slots (8, 16 or 32) and loads their keys,
+//     messages and weights as 16-byte vectors, so a warp's loads are whole
+//     lines.  At D > 1 a group of T lanes owns (kTile / 256) T
+//     consecutive slots, 4 at a step, each lane 4
 //     columns of a message row (1 where D % 4 != 0), so a row is read as
 //     whole 16-byte vectors, streamed past L1.  A hub row is cut across
 //     groups and tiles like any other: skewed in-degrees leave no lane idle.
@@ -63,6 +67,7 @@
 // is not fused in here; the empty rows of one gap are zeroed by one thread.
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -75,15 +80,21 @@ using namespace repro_chunk;  // NOLINT: the shared chunk-row decode
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 4096;                 // slots a block; segment_reduce.py mirrors it
-constexpr int kWarpSlots = kTile / kWarps;  // 512: each warp's own slots
-constexpr int kRun = kWarpSlots / 32;       // 16 slots a thread at D = 1
 constexpr int kNone = INT_MIN;  // the next group's first key, past the last group
 
 __device__ __forceinline__ int clamp_key(int v, int n_out) { return min(max(v, -1), n_out); }
 
-// Shared index of tile slot i: a spare word every 32 keeps the 16-slot
-// rows that the threads of a warp read at once on distinct banks.
+// A tile of kTile slots (segment_reduce.py's TILES): each warp's own
+// slots, and the slots a thread owns at D = 1.
+template <int kTile>
+struct Tiling {
+  static_assert(kTile % (kWarps * 32 * 4) == 0, "a thread's run is whole 16-byte vectors");
+  static constexpr int kWarpSlots = kTile / kWarps;
+  static constexpr int kRun = kWarpSlots / 32;
+};
+
+// Shared index of tile slot i: a spare word every 32 keeps the 8-, 16- or
+// 32-slot rows that the threads of a warp read at once on distinct banks.
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
 template <int V>
@@ -355,10 +366,11 @@ struct RawKeys {
 // (ovf_pos, ovf_add; pos == 128 marks an unused slot); the adaptive layout
 // has one int8 lane, a per-chunk wide tag and a compacted hi-byte plane.
 // The TPU kernels decode each tile in the prologue and feed the one-hot
-// MXU product.  Here only the key source changes: each warp decodes its 4
-// chunk rows (512 slots) with chunk_decode.cuh's decode_row (4 slots a
-// lane, the same text as the standalone decode in delta_decode.cu) into
-// shared memory, and the pass reads its keys there.  Decoded ids never
+// MXU product.  Here only the key source changes: each warp decodes its
+// kTile / 1024 chunk rows (2, 4 or 8) with chunk_decode.cuh's decode_row
+// (4 slots a lane, the same text as the standalone decode in
+// delta_decode.cu) into shared memory (33.8 KB of keys at 8192 slots,
+// still static), and the pass reads its keys there.  Decoded ids never
 // reach HBM; a row that crosses a chunk or a tile edge is one more run for
 // the scan or the fix-up, so no warp reads another row's first id.
 // Contract: the decoded ids are ascending (the engine's dst_sorted lane
@@ -369,15 +381,17 @@ struct RawKeys {
 // a slot to the stream's bytes (about 1.5 a slot for int8 chunks with their
 // escape table, 2.5 for int16); messages and output are unchanged.
 
-template <int kWidth, bool kAdaptive>
+template <int kWidth, bool kAdaptive, int kTile>
 struct ChunkKeys {
   ChunkedLane c;
   const int* hi_row;  // adaptive: int32[R], the wrapper's hi-plane row of each chunk
+  static constexpr int kWarpSlots = Tiling<kTile>::kWarpSlots;
   struct Shared {
     int keys[kTile + kTile / 32];
   };
 
-  // The tile's 32 chunk rows, 4 a warp, decoded into shared memory.
+  // The tile's kTile / 128 chunk rows, kTile / 1024 a warp, decoded into
+  // shared memory.
   __device__ void prepare(int n_out, Shared& sh) const {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -429,15 +443,17 @@ __device__ __forceinline__ void pad_tile(int* ckey, int n_out) {
   if (threadIdx.x == 0) ckey[2 * blockIdx.x] = ckey[2 * blockIdx.x + 1] = n_out;
 }
 
-// D = 1: a thread's 16 slots as vectors, a group per thread.  `vec`: dst,
-// msg and w are 16-byte aligned.  Past the pad-tile exit every slot's
+// D = 1: a thread's kRun slots as vectors, a group per thread.  `vec`:
+// dst, msg and w are 16-byte aligned.  Past the pad-tile exit every slot's
 // message is read (only the tile that holds the last valid key reads pad
 // messages), so the loads wait on no key.
-template <bool kWeighted, class Keys>
+template <bool kWeighted, int kTile, class Keys>
 __global__ void __launch_bounds__(kThreads)
     tile_d1_kernel(Keys keys, const float* __restrict__ w, const float* __restrict__ msg,
                    float* __restrict__ out, int* __restrict__ ckey, float* __restrict__ cval,
                    long long E, int n_out, bool vec) {
+  constexpr int kWarpSlots = Tiling<kTile>::kWarpSlots;
+  constexpr int kRun = Tiling<kTile>::kRun;
   __shared__ typename Keys::Shared ksm;
   __shared__ ScanSmem<1> sm;
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
@@ -475,7 +491,7 @@ __global__ void __launch_bounds__(kThreads)
 // D > 1: groups of T lanes over columns (V = 4: float4 columns), 4 slots a
 // step: their keys, weights and message rows (streamed past L1: each is
 // read once) in flight together.
-template <bool kWeighted, int V, class Keys>
+template <bool kWeighted, int V, int kTile, class Keys>
 __global__ void __launch_bounds__(kThreads)
     tile_cols_kernel(Keys keys, const float* __restrict__ w, const float* __restrict__ msg,
                      float* __restrict__ out, int* __restrict__ ckey, float* __restrict__ cval,
@@ -598,8 +614,9 @@ int group_lanes(int D, int V) {
 }
 
 // Carry keys at the scratch's start, values from the next 16-byte bound;
-// segment_reduce.py's _scratch sizes the buffer the same way.
-template <bool kWeighted, class Keys>
+// segment_reduce.py's _scratch sizes the buffer the same way (2 carries a
+// tile of kTile slots).
+template <bool kWeighted, int kTile, class Keys>
 int launch(const Keys& keys, const float* w, const float* msg, float* out, void* scratch,
            long long E, int D, int n_out, void* stream) {
   if (n_out <= 0 || D <= 0) return static_cast<int>(cudaSuccess);
@@ -614,13 +631,13 @@ int launch(const Keys& keys, const float* w, const float* msg, float* out, void*
   if (tiles > 0) {
     const unsigned grid = static_cast<unsigned>(tiles);
     if (D == 1) {
-      tile_d1_kernel<kWeighted, Keys>
+      tile_d1_kernel<kWeighted, kTile, Keys>
           <<<grid, kThreads, 0, s>>>(keys, w, msg, out, ckey, cval, E, n_out, vec);
     } else if (V == 4) {
-      tile_cols_kernel<kWeighted, 4, Keys>
+      tile_cols_kernel<kWeighted, 4, kTile, Keys>
           <<<grid, kThreads, 0, s>>>(keys, w, msg, out, ckey, cval, E, D, n_out, T, vec);
     } else {
-      tile_cols_kernel<kWeighted, 1, Keys>
+      tile_cols_kernel<kWeighted, 1, kTile, Keys>
           <<<grid, kThreads, 0, s>>>(keys, w, msg, out, ckey, cval, E, D, n_out, T, vec);
     }
     const int err = static_cast<int>(cudaGetLastError());
@@ -636,45 +653,69 @@ int launch(const Keys& keys, const float* w, const float* msg, float* out, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kWeighted>
+template <bool kWeighted, int kTile>
 int launch_chunked(const ChunkedLane& c, const int* hi_row, int width, bool adaptive,
                    const float* w, const float* msg, float* out, void* scratch, int D, int n_out,
                    void* stream) {
   if (c.R <= 0 || c.K < 0 || c.K > 32) return static_cast<int>(cudaErrorInvalidValue);
   const long long E = c.R * kChunk;
   if (adaptive) {
-    return launch<kWeighted>(ChunkKeys<1, true>{c, hi_row}, w, msg, out, scratch, E, D, n_out,
-                             stream);
+    return launch<kWeighted, kTile>(ChunkKeys<1, true, kTile>{c, hi_row}, w, msg, out, scratch,
+                                    E, D, n_out, stream);
   }
   if (width == 1) {
-    return launch<kWeighted>(ChunkKeys<1, false>{c, nullptr}, w, msg, out, scratch, E, D, n_out,
-                             stream);
+    return launch<kWeighted, kTile>(ChunkKeys<1, false, kTile>{c, nullptr}, w, msg, out,
+                                    scratch, E, D, n_out, stream);
   }
   if (width == 2) {
-    return launch<kWeighted>(ChunkKeys<2, false>{c, nullptr}, w, msg, out, scratch, E, D, n_out,
-                             stream);
+    return launch<kWeighted, kTile>(ChunkKeys<2, false, kTile>{c, nullptr}, w, msg, out,
+                                    scratch, E, D, n_out, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// f(std::integral_constant<int, tile>) for the three tiles the kernels are
+// built for; any other tile is cudaErrorInvalidValue.
+template <class F>
+int with_tile(int tile, F&& f) {
+  switch (tile) {
+    case 2048:
+      return f(std::integral_constant<int, 2048>{});
+    case 4096:
+      return f(std::integral_constant<int, 4096>{});
+    case 8192:
+      return f(std::integral_constant<int, 8192>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  dst: int32[E] ascending;
 // w: float32[E]; msg: float32[E, D] row-major; out: float32[n_out, D],
-// every row written; scratch: the carries, at least
-// round16(8 * tiles) + 8 * tiles * D bytes with tiles = ceil(E / 4096),
+// every row written; tile: slots a block, 2048, 4096 or 8192 (any other
+// is cudaErrorInvalidValue); scratch: the carries, at least
+// round16(8 * tiles) + 8 * tiles * D bytes with tiles = ceil(E / tile),
 // 16-byte aligned.  Two launches (the pass, the fix-up) on `stream`;
 // returns cudaGetLastError().
 extern "C" int repro_segment_sum_sorted(const int* dst, const float* msg, float* out,
-                                        void* scratch, long long E, int D, int n_out,
+                                        void* scratch, long long E, int D, int n_out, int tile,
                                         void* stream) {
-  return launch<false>(RawKeys{dst, E}, nullptr, msg, out, scratch, E, D, n_out, stream);
+  return with_tile(tile, [&](auto t) {
+    return launch<false, decltype(t)::value>(RawKeys{dst, E}, nullptr, msg, out, scratch, E, D,
+                                             n_out, stream);
+  });
 }
 
 extern "C" int repro_segment_sum_weighted_sorted(const int* dst, const float* w,
                                                  const float* msg, float* out, void* scratch,
-                                                 long long E, int D, int n_out, void* stream) {
-  return launch<true>(RawKeys{dst, E}, w, msg, out, scratch, E, D, n_out, stream);
+                                                 long long E, int D, int n_out, int tile,
+                                                 void* stream) {
+  return with_tile(tile, [&](auto t) {
+    return launch<true, decltype(t)::value>(RawKeys{dst, E}, w, msg, out, scratch, E, D, n_out,
+                                            stream);
+  });
 }
 
 // Chunked entry points.  anchors: int32[R]; deltas: int8 or int16 [R, 128]
@@ -687,37 +728,48 @@ extern "C" int repro_segment_sum_weighted_sorted(const int* dst, const float* w,
 extern "C" int repro_segment_sum_sorted_chunked(const int* anchors, const void* deltas, int width,
                                                 const int* ovf_pos, const int* ovf_add,
                                                 const float* msg, float* out, void* scratch,
-                                                long long R, int K, int D, int n_out,
+                                                long long R, int K, int D, int n_out, int tile,
                                                 void* stream) {
   const ChunkedLane c{anchors, deltas, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
-  return launch_chunked<false>(c, nullptr, width, false, nullptr, msg, out, scratch, D, n_out,
-                               stream);
+  return with_tile(tile, [&](auto t) {
+    return launch_chunked<false, decltype(t)::value>(c, nullptr, width, false, nullptr, msg, out,
+                                                     scratch, D, n_out, stream);
+  });
 }
 
 extern "C" int repro_segment_sum_weighted_chunked(const int* anchors, const void* deltas,
                                                   int width, const int* ovf_pos,
                                                   const int* ovf_add, const float* w,
                                                   const float* msg, float* out, void* scratch,
-                                                  long long R, int K, int D, int n_out,
+                                                  long long R, int K, int D, int n_out, int tile,
                                                   void* stream) {
   const ChunkedLane c{anchors, deltas, nullptr, nullptr, ovf_pos, ovf_add, R, K, 0};
-  return launch_chunked<true>(c, nullptr, width, false, w, msg, out, scratch, D, n_out, stream);
+  return with_tile(tile, [&](auto t) {
+    return launch_chunked<true, decltype(t)::value>(c, nullptr, width, false, w, msg, out,
+                                                    scratch, D, n_out, stream);
+  });
 }
 
 extern "C" int repro_segment_sum_sorted_chunked_adaptive(
     const int* anchors, const void* deltas, const void* hi, const void* wide, const int* hi_row,
     int H, const int* ovf_pos, const int* ovf_add, const float* msg, float* out, void* scratch,
-    long long R, int K, int D, int n_out, void* stream) {
+    long long R, int K, int D, int n_out, int tile, void* stream) {
   const ChunkedLane c{anchors, deltas, static_cast<const signed char*>(hi),
                       static_cast<const unsigned char*>(wide), ovf_pos, ovf_add, R, K, H};
-  return launch_chunked<false>(c, hi_row, 1, true, nullptr, msg, out, scratch, D, n_out, stream);
+  return with_tile(tile, [&](auto t) {
+    return launch_chunked<false, decltype(t)::value>(c, hi_row, 1, true, nullptr, msg, out,
+                                                     scratch, D, n_out, stream);
+  });
 }
 
 extern "C" int repro_segment_sum_weighted_chunked_adaptive(
     const int* anchors, const void* deltas, const void* hi, const void* wide, const int* hi_row,
     int H, const int* ovf_pos, const int* ovf_add, const float* w, const float* msg, float* out,
-    void* scratch, long long R, int K, int D, int n_out, void* stream) {
+    void* scratch, long long R, int K, int D, int n_out, int tile, void* stream) {
   const ChunkedLane c{anchors, deltas, static_cast<const signed char*>(hi),
                       static_cast<const unsigned char*>(wide), ovf_pos, ovf_add, R, K, H};
-  return launch_chunked<true>(c, hi_row, 1, true, w, msg, out, scratch, D, n_out, stream);
+  return with_tile(tile, [&](auto t) {
+    return launch_chunked<true, decltype(t)::value>(c, hi_row, 1, true, w, msg, out, scratch, D,
+                                                    n_out, stream);
+  });
 }

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/kernels/ops.py:57-142`` (delta decode),
 ``:177-235`` and ``:299-378`` (segment sums), ``:381-387`` (fanout) and
-``:394-400`` (flash decode), ``:408-444`` (block SpMM).  The reference pads the
+``:394-400`` (flash decode), ``:408-444`` (block SpMM), with the sweep
+factories ``:150`` (``_sweep_segment_sum``), ``:271``
+(``_sweep_segment_sum_chunked``) and ``:414`` (``_sweep_spmm``).  The reference pads the
 edge axis to whole edge blocks with an out-of-range dst (chunked: whole
 chunk rows with an out-of-range anchor) and adds one
 extra destination block to swallow the padding.  The Hopper kernels take
@@ -18,8 +20,17 @@ the GNN wrappers: the reference pads the fanout batch to a multiple of 8
 and x to whole SpMM tiles, where the Hopper kernels take any B and read
 rows of x past its end as zero.  Nor does the flash decode: the
 reference pads S to whole 512-key blocks, where the Hopper kernel masks
-by length and takes any S.  Launch shapes are fixed (no autotuner
-consult yet).
+by length and takes any S.
+
+The segment sums and the SpMM take their launch tile from the autotuner
+(``kernels/autotune.py``) unless the caller names one (``tile=``,
+``row_tile=``/``col_tile=``), as the reference's block shapes do: a
+consult per call, a sweep the first time a (kernel, device type, shape
+bucket) is seen on the card.  The sweep factories build synthetic inputs
+of the real shape from a seeded generator on the call's device, pass
+explicit tiles (so a candidate's call skips the consult), and are
+dropped, with their inputs, when the consult returns.  On the CPU the
+consult returns the defaults and the plain versions run.
 """
 from __future__ import annotations
 
@@ -27,8 +38,9 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from ..core import compressed as cz
 from ..core.chunks import PackedDeltas
-from . import csr_spmm, delta_decode, flash_decode, segment_reduce
+from . import autotune, csr_spmm, delta_decode, flash_decode, segment_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -114,24 +126,99 @@ def decode_pool(packed: PackedDeltas, device=None) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def segment_sum(dst: torch.Tensor, msg: torch.Tensor, n_out: int) -> torch.Tensor:
-    """Sorted segment sum: float32 (n_out, D) from dst (E,) and msg (E, D)."""
+def _sweep_segment_sum(E: int, n_out: int, D: int, weighted: bool, device: torch.device):
+    """sweep_fn factory: a synthetic sorted segment sum of the real shape
+    (E keys drawn uniformly below n_out and sorted, (E, D) messages),
+    built at the first candidate and kept for the others."""
+    inputs = []
+
+    def make(params):
+        if not inputs:
+            gen = torch.Generator(device=device).manual_seed(0)
+            E1 = max(E, 1)
+            dst = torch.randint(0, max(n_out, 1), (E1,), generator=gen, device=device,
+                                dtype=torch.int32)
+            inputs.extend([torch.sort(dst).values,
+                           torch.rand((E1,), generator=gen, device=device),
+                           torch.rand((E1, D), generator=gen, device=device)])
+        dst, w, msg = inputs
+        if weighted:
+            return lambda: segment_sum_weighted(dst, w, msg, n_out, **params)
+        return lambda: segment_sum(dst, msg, n_out, **params)
+
+    return make
+
+
+def _tile(kernel: str, shape: dict, make, device: torch.device) -> int:
+    return autotune.get_params(kernel, shape, sweep_fn=make, backend=device.type)["tile"]
+
+
+def segment_sum(dst: torch.Tensor, msg: torch.Tensor, n_out: int,
+                tile: int | None = None) -> torch.Tensor:
+    """Sorted segment sum: float32 (n_out, D) from dst (E,) and msg (E, D).
+    ``tile``: slots a block of the kernel's pass; default the autotuner's
+    winner for the shape."""
+    E, D = msg.shape
+    if tile is None:
+        tile = _tile("segment_sum", {"E": E, "n": n_out, "D": D},
+                     _sweep_segment_sum(E, n_out, D, False, msg.device), msg.device)
     return segment_reduce.segment_sum_sorted(
-        dst.to(torch.int32).contiguous(), msg.to(torch.float32).contiguous(), int(n_out)
+        dst.to(torch.int32).contiguous(), msg.to(torch.float32).contiguous(), int(n_out),
+        tile=tile,
     )
 
 
 def segment_sum_weighted(
-    dst: torch.Tensor, w: torch.Tensor, msg: torch.Tensor, n_out: int
+    dst: torch.Tensor, w: torch.Tensor, msg: torch.Tensor, n_out: int, tile: int | None = None
 ) -> torch.Tensor:
     """Weighted sorted segment sum (out[d] = sum w[e] * msg[e]); same
-    dropping contract as ``segment_sum``."""
+    dropping contract and tile as ``segment_sum``."""
+    E, D = msg.shape
+    if tile is None:
+        tile = _tile("segment_sum_weighted", {"E": E, "n": n_out, "D": D},
+                     _sweep_segment_sum(E, n_out, D, True, msg.device), msg.device)
     return segment_reduce.segment_sum_weighted_sorted(
         dst.to(torch.int32).contiguous(),
         w.to(torch.float32).contiguous(),
         msg.to(torch.float32).contiguous(),
         int(n_out),
+        tile=tile,
     )
+
+
+def _sweep_segment_sum_chunked(R: int, n_out: int, D: int, weighted: bool, width: int,
+                               adaptive: bool, device: torch.device):
+    """sweep_fn factory for the chunked sums: R * CHUNK keys drawn
+    uniformly below n_out, sorted and encoded in the call's layout
+    (fixed ``width``, or adaptive), with (R * CHUNK, D) messages."""
+    inputs = []
+
+    def make(params):
+        if not inputs:
+            gen = torch.Generator(device=device).manual_seed(0)
+            E = max(R, 1) * cz.CHUNK
+            lane = torch.sort(torch.randint(0, max(n_out, 1), (E,), generator=gen, device=device,
+                                            dtype=torch.int32)).values
+            s = (cz.encode_stream_adaptive(lane, hi_cap=max(R, 1)) if adaptive
+                 else cz.encode_stream(lane, width=width))
+            inputs.extend([s, torch.rand((E,), generator=gen, device=device),
+                           torch.rand((E, D), generator=gen, device=device)])
+        s, w, msg = inputs
+        args = (s.anchors, s.deltas, s.ovf_pos, s.ovf_add)
+        if weighted:
+            return lambda: segment_sum_weighted_chunked(*args, w, msg, n_out, hi=s.hi,
+                                                        wide=s.wide, **params)
+        return lambda: segment_sum_chunked(*args, msg, n_out, hi=s.hi, wide=s.wide, **params)
+
+    return make
+
+
+def _chunked_tile(kernel: str, deltas: torch.Tensor, msg: torch.Tensor, n_out: int,
+                  weighted: bool, adaptive: bool) -> int:
+    R, D = deltas.shape[0], msg.shape[1]
+    make = _sweep_segment_sum_chunked(R, n_out, D, weighted, deltas.element_size(), adaptive,
+                                      msg.device)
+    return _tile(kernel, {"R": R, "n": n_out, "D": D}, make, msg.device)
 
 
 def segment_sum_chunked(
@@ -143,18 +230,22 @@ def segment_sum_chunked(
     n_out: int,
     hi: torch.Tensor | None = None,
     wide: torch.Tensor | None = None,
+    tile: int | None = None,
 ) -> torch.Tensor:
     """``segment_sum`` with a chunk-compressed dst lane (a
     ``core/compressed.ChunkedStream``'s arrays), decoded inside the kernel.
     msg row ``r * CHUNK + c`` pairs with chunk ``r`` column ``c``.  Pass
-    ``hi``/``wide`` for adaptive streams."""
+    ``hi``/``wide`` for adaptive streams (which consult under this
+    kernel's key, as the reference's do)."""
+    if tile is None:
+        tile = _chunked_tile("segment_sum_chunked", deltas, msg, n_out, False, hi is not None)
     args = _chunk_args(anchors, deltas, ovf_pos, ovf_add)
     m = msg.to(torch.float32).contiguous()
     if hi is None:
-        return segment_reduce.segment_sum_sorted_chunked(*args, m, int(n_out))
+        return segment_reduce.segment_sum_sorted_chunked(*args, m, int(n_out), tile=tile)
     a, d, p, v = args
     return segment_reduce.segment_sum_sorted_chunked_adaptive(
-        a, d, hi.contiguous(), wide.contiguous(), p, v, m, int(n_out))
+        a, d, hi.contiguous(), wide.contiguous(), p, v, m, int(n_out), tile=tile)
 
 
 def segment_sum_weighted_chunked(
@@ -167,16 +258,20 @@ def segment_sum_weighted_chunked(
     n_out: int,
     hi: torch.Tensor | None = None,
     wide: torch.Tensor | None = None,
+    tile: int | None = None,
 ) -> torch.Tensor:
     """Weighted ``segment_sum_chunked`` (weight pads are 0)."""
+    if tile is None:
+        tile = _chunked_tile("segment_sum_weighted_chunked", deltas, msg, n_out, True,
+                             hi is not None)
     args = _chunk_args(anchors, deltas, ovf_pos, ovf_add)
     wf = w.to(torch.float32).contiguous()
     m = msg.to(torch.float32).contiguous()
     if hi is None:
-        return segment_reduce.segment_sum_weighted_chunked(*args, wf, m, int(n_out))
+        return segment_reduce.segment_sum_weighted_chunked(*args, wf, m, int(n_out), tile=tile)
     a, d, p, v = args
     return segment_reduce.segment_sum_weighted_chunked_adaptive(
-        a, d, hi.contiguous(), wide.contiguous(), p, v, wf, m, int(n_out))
+        a, d, hi.contiguous(), wide.contiguous(), p, v, wf, m, int(n_out), tile=tile)
 
 
 def _chunk_args(anchors, deltas, ovf_pos, ovf_add):
@@ -220,13 +315,44 @@ def spmm(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) -> tor
                                x.to(torch.float32).contiguous())
 
 
-def spmm_from_edges(n: int, src, dst, x: torch.Tensor, vals=None) -> torch.Tensor:
+def _sweep_spmm(n: int, m: int, D: int, device: torch.device):
+    """sweep_fn factory for the SpMM tiles: m random edges over n
+    vertices (host arrays, as the entry point takes them) and (n, D)
+    features; each candidate's tiles are built before its timing, so
+    the sweep times the kernel's launches, not the host build."""
+    inputs = []
+
+    def make(params):
+        if not inputs:
+            gen = torch.Generator().manual_seed(0)  # the edges are host arrays
+            src = torch.randint(0, max(n, 1), (max(m, 1),), generator=gen).numpy()
+            dst = torch.randint(0, max(n, 1), (max(m, 1),), generator=gen).numpy()
+            x = torch.rand((n, D), generator=torch.Generator(device=device).manual_seed(0),
+                           device=device)
+            inputs.extend([src, dst, x])
+        src, dst, x = inputs
+        mask, tiles, _ = csr_spmm.tiles_from_edges(n, src, dst, None, **params)
+        mask, tiles = torch.from_numpy(mask).to(device), torch.from_numpy(tiles).to(device)
+        return lambda: spmm(mask, tiles, x)
+
+    return make
+
+
+def spmm_from_edges(n: int, src, dst, x: torch.Tensor, vals=None,
+                    row_tile: int | None = None, col_tile: int | None = None) -> torch.Tensor:
     """``A @ x`` with ``A[dst, src] += vals`` (unit values by default) for
     an edge list given as host arrays: tiles built on the host
     (``csr_spmm.tiles_from_edges``), moved to x's device, then ``spmm``;
-    returns float32 (n, D).  The reference consults its autotuner for
-    the tile sizes; until the port has one (ROADMAP item 13) they are
-    fixed at ``ROW_TILE = COL_TILE = 128``."""
-    mask, tiles, _ = csr_spmm.tiles_from_edges(n, src, dst, vals)
+    returns float32 (n, D).  The tiles are the autotuner's winner for
+    ``{"n", "m"}`` (its sweep runs at x's width) unless both are named."""
+    if row_tile is None or col_tile is None:
+        m = int(np.asarray(src).shape[0])
+        tuned = autotune.get_params("spmm", {"n": n, "m": m},
+                                    sweep_fn=_sweep_spmm(n, m, x.shape[1], x.device),
+                                    backend=x.device.type)
+        row_tile = row_tile or tuned["row_tile"]
+        col_tile = col_tile or tuned["col_tile"]
+    mask, tiles, _ = csr_spmm.tiles_from_edges(n, src, dst, vals, row_tile=row_tile,
+                                               col_tile=col_tile)
     out = spmm(torch.from_numpy(mask).to(x.device), torch.from_numpy(tiles).to(x.device), x)
     return out[:n]

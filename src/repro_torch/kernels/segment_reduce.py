@@ -5,9 +5,12 @@ Counterpart of ``repro/kernels/segment_reduce.py:53`` (``segment_sum_sorted``),
 ``:109`` (``segment_sum_weighted_sorted``) and the chunked ``:229``, ``:271``,
 ``:410`` and ``:454``.  The kernels live in ``csrc/segment_reduce.cu``; see
 its comments for the design (one edge-parallel pass over tiles of
-``TILE`` slots, then a fix-up launch for the rows that cross a tile
+``tile`` slots, then a fix-up launch for the rows that cross a tile
 edge) and the bound.  The carries between the two live in a buffer kept
-per stream (``_build.scratch``).  The GraphSAGE fanout reduce
+per stream (``_build.scratch``).  Each wrapper takes ``tile=``, one of
+``TILES`` (default ``TILE``); ``ops`` passes the autotuner's winner for
+the shape (``kernels/autotune.py``).  The plain versions take no tile,
+and on the CPU the wrappers ignore it.  The GraphSAGE fanout reduce
 (``:522`` ``fanout_aggregate``) is at the end, its kernel in
 ``csrc/fanout.cu``.
 
@@ -51,15 +54,23 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# Slots a block of the segment-sum pass takes (kTile in csrc/segment_reduce.cu).
+# Slots a block of the segment-sum pass takes (kTile in csrc/segment_reduce.cu,
+# built for each of TILES; TILE when no tile is named).
+TILES = (2048, 4096, 8192)
 TILE = 4096
 
 
-def _scratch(E: int, D: int, device: torch.device) -> torch.Tensor:
+def _check_tile(tile: int) -> int:
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    return tile
+
+
+def _scratch(E: int, D: int, device: torch.device, tile: int) -> torch.Tensor:
     """The carry buffer of a call over E slots: 2 int32 keys and 2 * D
     float32 values a tile, the values from the next 16-byte bound (the
     layout ``csrc/segment_reduce.cu``'s ``launch`` reads)."""
-    tiles = -(-E // TILE)
+    tiles = -(-E // tile)
     return _build.scratch("segment_sum", device, -(-8 * tiles // 16) * 16 + 8 * tiles * D)
 
 
@@ -99,34 +110,38 @@ def segment_sum_weighted_sorted_plain(
     return _plain(dst, msg, n_out, w)
 
 
-def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int) -> torch.Tensor:
+def _launch(fn_name: str, counter: str, dst, w, msg, n_out: int, tile: int) -> torch.Tensor:
     E, D = msg.shape
     out = torch.empty((n_out, D), dtype=torch.float32, device=msg.device)
     head = [dst] + ([] if w is None else [w]) + [msg, out]
-    tail = [ctypes.c_longlong(E), ctypes.c_int(D), ctypes.c_int(n_out)]
+    tail = [ctypes.c_longlong(E), ctypes.c_int(D), ctypes.c_int(n_out), ctypes.c_int(tile)]
     _build.launch_with_scratch(
         lambda: _build.launch("segment_reduce", fn_name,
-                              head + [_scratch(E, D, msg.device)] + tail, msg.device),
+                              head + [_scratch(E, D, msg.device, tile)] + tail, msg.device),
         LAUNCHES, counter)
     return out
 
 
-def segment_sum_sorted(dst: torch.Tensor, msg: torch.Tensor, n_out: int) -> torch.Tensor:
+def segment_sum_sorted(dst: torch.Tensor, msg: torch.Tensor, n_out: int,
+                       tile: int = TILE) -> torch.Tensor:
     """out[d, :] = sum of msg rows with dst == d (d < n_out)."""
     _check(dst, msg, n_out, None)
+    _check_tile(tile)
     if dst.device.type == "cpu":
         return segment_sum_sorted_plain(dst, msg, n_out)
-    return _launch("repro_segment_sum_sorted", "segment_sum", dst, None, msg, n_out)
+    return _launch("repro_segment_sum_sorted", "segment_sum", dst, None, msg, n_out, tile)
 
 
 def segment_sum_weighted_sorted(
-    dst: torch.Tensor, w: torch.Tensor, msg: torch.Tensor, n_out: int
+    dst: torch.Tensor, w: torch.Tensor, msg: torch.Tensor, n_out: int, tile: int = TILE
 ) -> torch.Tensor:
     """out[d, :] = sum of w[e] * msg[e, :] over edges with dst == d."""
     _check(dst, msg, n_out, w)
+    _check_tile(tile)
     if dst.device.type == "cpu":
         return segment_sum_weighted_sorted_plain(dst, w, msg, n_out)
-    return _launch("repro_segment_sum_weighted_sorted", "segment_sum_weighted", dst, w, msg, n_out)
+    return _launch("repro_segment_sum_weighted_sorted", "segment_sum_weighted", dst, w, msg,
+                   n_out, tile)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +209,8 @@ _CHUNKED = {
 }
 
 
-def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) -> torch.Tensor:
+def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide,
+                    tile) -> torch.Tensor:
     adaptive, weighted = hi is not None, w is not None
     counter, fn_name = _CHUNKED[(weighted, adaptive)]
     delta_decode.check_lane_aligned(deltas, hi)  # the shared decode_row's vector loads
@@ -209,50 +225,58 @@ def _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide) 
         args += [ctypes.c_int(deltas.element_size())]
     args += [ovf_pos, ovf_add] + ([w] if weighted else [])
     args += [msg, out]
-    tail = [ctypes.c_longlong(R), ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(n_out)]
+    tail = [ctypes.c_longlong(R), ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(n_out),
+            ctypes.c_int(tile)]
     _build.launch_with_scratch(
         lambda: _build.launch("segment_reduce", fn_name,
-                              args + [_scratch(R * cz.CHUNK, D, msg.device)] + tail, msg.device),
+                              args + [_scratch(R * cz.CHUNK, D, msg.device, tile)] + tail,
+                              msg.device),
         LAUNCHES, counter)
     return out
 
 
-def segment_sum_sorted_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out) -> torch.Tensor:
+def segment_sum_sorted_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out,
+                               tile: int = TILE) -> torch.Tensor:
     """``segment_sum_sorted`` over a fixed-width chunked dst lane (int8 or
     int16 deltas with escapes), decoded inside the kernel."""
     _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out)
+    _check_tile(tile)
     if msg.device.type == "cpu":
         return segment_sum_sorted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, msg, n_out)
-    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, None, msg, n_out, None, None)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, None, msg, n_out, None, None, tile)
 
 
-def segment_sum_weighted_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out) -> torch.Tensor:
+def segment_sum_weighted_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out,
+                                 tile: int = TILE) -> torch.Tensor:
     """Weighted ``segment_sum_sorted_chunked``."""
     _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, w=w)
+    _check_tile(tile)
     if msg.device.type == "cpu":
         return segment_sum_weighted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out)
-    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, None, None)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, None, None, tile)
 
 
 def segment_sum_sorted_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ovf_add, msg,
-                                        n_out) -> torch.Tensor:
+                                        n_out, tile: int = TILE) -> torch.Tensor:
     """``segment_sum_sorted_chunked`` over the adaptive layout: int8 lane,
     compacted hi plane ``hi`` (H, CHUNK) and per-chunk tags ``wide``."""
     _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, hi=hi, wide=wide)
+    _check_tile(tile)
     if msg.device.type == "cpu":
         return segment_sum_sorted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, msg, n_out,
                                                 hi, wide)
-    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, None, msg, n_out, hi, wide)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, None, msg, n_out, hi, wide, tile)
 
 
 def segment_sum_weighted_chunked_adaptive(anchors, deltas, hi, wide, ovf_pos, ovf_add, w, msg,
-                                          n_out) -> torch.Tensor:
+                                          n_out, tile: int = TILE) -> torch.Tensor:
     """Weighted ``segment_sum_sorted_chunked_adaptive``."""
     _check_chunked(anchors, deltas, ovf_pos, ovf_add, msg, n_out, w=w, hi=hi, wide=wide)
+    _check_tile(tile)
     if msg.device.type == "cpu":
         return segment_sum_weighted_chunked_plain(anchors, deltas, ovf_pos, ovf_add, w, msg,
                                                   n_out, hi, wide)
-    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide)
+    return _launch_chunked(anchors, deltas, ovf_pos, ovf_add, w, msg, n_out, hi, wide, tile)
 
 
 # ---------------------------------------------------------------------------

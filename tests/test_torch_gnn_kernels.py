@@ -106,6 +106,32 @@ def test_tiles_from_edges_bit_identical(n, E, vals):
     assert got[0].dtype == np.int32 and got[1].dtype == np.float32
 
 
+@pytest.mark.parametrize("n,E", [(256, 2000), (300, 5000), (1, 3), (600, 4000)])
+def test_tiles_from_edges_at_256_bit_identical(n, E):
+    """The autotuner's other tile: 256 x 256, the reference's builder at
+    ``row_tile=col_tile=256``."""
+    rng = np.random.default_rng(n + E + 256)
+    src, dst = rng.integers(0, n, size=E), rng.integers(0, n, size=E)
+    v = rng.standard_normal(E).astype(np.float32)
+    got = tsp.tiles_from_edges(n, src, dst, v, row_tile=256, col_tile=256)
+    want = jsp.tiles_from_edges(n, src, dst, v, row_tile=256, col_tile=256)
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+    assert got[2] == want[2] and got[1].shape[2:] == (256, 256)
+
+
+@pytest.mark.parametrize("tile", [128, 256])
+def test_spmm_from_edges_explicit_tile_matches_reference(tile):
+    rng = np.random.default_rng(tile)
+    n, E, D = 300, 2000, 8
+    src, dst = rng.integers(0, n, size=E), rng.integers(0, n, size=E)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    got = tops.spmm_from_edges(n, src, dst, _t(x), row_tile=tile, col_tile=tile)
+    want = np.asarray(jops.spmm_from_edges(n, src, dst, jnp.asarray(x), row_tile=tile,
+                                           col_tile=tile))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("n,E,D", [(256, 2000, 64), (300, 5000, 128), (300, 700, 1),
                                    (512, 3000, 16)])
 def test_spmm_from_edges_matches_reference_and_dense(n, E, D):
@@ -159,7 +185,7 @@ def test_cpu_wrappers_take_plain_and_count_no_launch():
 
 @pytest.mark.parametrize("bad", [
     "fanout_op", "fanout_dtype", "fanout_mask_shape", "fanout_k0", "spmm_mask_dtype",
-    "spmm_x_rows", "spmm_tiles_dim", "spmm_strided", "spmm_tile_size",
+    "spmm_x_rows", "spmm_tiles_dim", "spmm_strided", "spmm_tile_size", "spmm_tile_not_square",
 ])
 def test_wrappers_reject_what_the_kernel_does_not_take(bad):
     f = torch.zeros((4, 3, 8))
@@ -176,9 +202,11 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
         "spmm_x_rows": lambda: tsp.block_spmm(tm, tiles, torch.zeros((257, 4))),
         "spmm_tiles_dim": lambda: tsp.block_spmm(tm, tiles[0], x),
         "spmm_strided": lambda: tsp.block_spmm(tm, tiles, torch.zeros((4, 256)).t()),
-        # tiles are fixed at 128 x 128 until the port has an autotuner
+        # the kernel is built for square tiles of 128 or 256
         "spmm_tile_size": lambda: tsp.block_spmm(tm, torch.zeros((2, 2, 16, 16)),
                                                  torch.zeros((32, 4))),
+        "spmm_tile_not_square": lambda: tsp.block_spmm(tm, torch.zeros((2, 2, 128, 256)),
+                                                       torch.zeros((256, 4))),
     }
     with pytest.raises((TypeError, ValueError)):
         calls[bad]()
@@ -298,6 +326,8 @@ def test_cuda_block_spmm_workspace_size_agrees_with_the_kernel(cuda):
     from repro_torch.kernels import _build
 
     fn = _build.c_function("block_spmm", "repro_block_spmm_workspace_bytes",
-                           [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
-    for nr, nc in [(1, 1), (22, 22), (3, 7)]:
-        assert fn(nr, nc) == tsp.workspace_bytes(nr, nc)
+                           [ctypes.c_int, ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
+    for tile in tsp.TILES:
+        for nr, nc in [(1, 1), (22, 22), (3, 7)]:
+            assert fn(nr, nc, tile) == tsp.workspace_bytes(nr, nc, tile)
+    assert fn(2, 2, 64) == -1  # a tile the kernel is not built for

@@ -181,3 +181,73 @@ def test_grown_capacity_and_heads_match():
     np.testing.assert_array_equal(tfct.head_mask(tt, 16, 7).numpy(),
                                   np.asarray(jfct.head_mask(jt, 16, 7)))
     assert tfct.num_heads(tt, 16, 7) == jfct.num_heads(jt, 16, 7)
+
+
+# ---------------------------------------------------------------------------
+# the host-driven set API (tests/test_flat_ctree.py:75-86's reference)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("optimized", [True, False])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_multi_insert_delete_host_api_matches_reference(optimized, weighted):
+    rng = np.random.default_rng(0)
+    base_in = rng.integers(0, 1 << 20, 1000).astype(np.int32)
+    base_w = rng.random(1000).astype(np.float32) if weighted else None
+    tt = tfct.from_array(base_in, vals=base_w, device="cpu")
+    jt = jfct.from_array(base_in, vals=base_w)
+    _same_pool(tt, jt)
+    base = tfct.to_array(tt).copy()
+    batch = rng.integers(0, 1 << 20, 500).astype(np.int32)
+    bw = rng.random(500).astype(np.float32) if weighted else None
+    t2 = tfct.multi_insert(tt, batch, optimized=optimized, vals=bw)
+    _same_pool(t2, jfct.multi_insert(jt, batch, optimized=optimized, vals=bw))
+    np.testing.assert_array_equal(tfct.to_array(t2), np.union1d(base, batch))
+    t3 = tfct.multi_delete(t2, batch)
+    _same_pool(t3, jfct.multi_delete(jfct.multi_insert(jt, batch, optimized=optimized, vals=bw),
+                                      batch))
+    np.testing.assert_array_equal(tfct.to_array(t3), np.setdiff1d(np.union1d(base, batch), batch))
+    # persistence: the pool a call was given is left as it was
+    np.testing.assert_array_equal(tfct.to_array(tt), base)
+    _same_pool(tt, jt)
+
+
+def test_multi_insert_grows_capacity_like_the_reference():
+    jt, tt = jfct.from_array(np.arange(6), cap=8), tfct.from_array(np.arange(6), cap=8,
+                                                                   device="cpu")
+    grown = tfct.multi_insert(tt, np.arange(100, 130))
+    _same_pool(grown, jfct.multi_insert(jt, np.arange(100, 130)))
+    assert tfct.capacity(grown) == jfct.capacity(jfct.multi_insert(jt, np.arange(100, 130))) == 64
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_empty_find_and_chunk_ids_match_reference(dtype):
+    j = jfct.empty(16, dtype=getattr(jnp, dtype))
+    t = tfct.empty(16, dtype=getattr(torch, dtype), device="cpu")
+    _same_pool(t, j)
+    assert not tfct.find(t, 3) and not jfct.find(j, 3)
+    v = np.unique(np.random.default_rng(1).integers(0, 1 << 20, 3000))
+    j = jfct.from_array(v, dtype=getattr(jnp, dtype))
+    t = tfct.from_array(v, dtype=getattr(torch, dtype), device="cpu")
+    for e in (int(v[0]), int(v[-1]), int(v[7]) + 1, -1, 1 << 21):
+        assert tfct.find(t, e) == jfct.find(j, e)
+    for b, seed in ((16, 7), (64, 0x9E3779B9), (100, 3)):
+        got = tfct.chunk_ids(t, b, seed)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jfct.chunk_ids(j, b, seed)))
+
+
+def test_edge_endpoints_and_priority_np_match_reference():
+    from repro.core.hash import priority_np as ref_priority_np
+    from repro_torch.core.hash import priority_np
+
+    rng = np.random.default_rng(9)
+    e = _edges(rng, 70)
+    jg, tg = jfg.from_edges(N, e), tfg.from_edges(N, e, device="cpu")
+    for got, want in zip(tfg.edge_endpoints(tg), jfg.edge_endpoints(jg)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))  # pad slots included
+    x = rng.integers(-(2**40), 2**40, 500)
+    for seed in (0, 7, int(np.uint32(0x9E3779B9))):
+        np.testing.assert_array_equal(priority_np(x, seed), ref_priority_np(x, seed))
+    np.testing.assert_array_equal(priority_np(x), ref_priority_np(x))
