@@ -157,7 +157,19 @@ checks every result.  One JSON object per phase goes to stdout:
           through ``make_serve_step`` on the kernel (full width, depth cut
           to 8 layers for time), the bf16 model's drift from float32 on
           one step, then ``generate`` on the kernel in bf16 with all 32
-          layers for 8 left-padded prompts of 5-32 tokens, 16 new tokens.
+          layers for 8 left-padded prompts of 5-32 tokens, 16 new tokens;
+  train   training through ``launch.train``: smollm-360m FULL in float32
+          (TF32 off) at B = 8, S = 512 through ``make_lm_run``, 6 steps
+          with a ``ResumableRun`` checkpoint after step 3, then a fresh
+          state restored from it re-running steps 4-6 (losses equal to
+          the uninterrupted run's); s/step, tokens/s and peak memory
+          with remat "none", "full" and "dots" (full must be lower than
+          none); the checkpoint's bytes, save and restore seconds;
+          dcn-v2 FULL (26 x 10^6 x 16 float32 tables) at B = 65,536
+          through ``make_dcn_run``, 4 steps; and two steps of REDUCED
+          smollm and REDUCED dcn-v2 on the card and on the CPU from the
+          same parameters and batches, loss, grad norm and every
+          parameter and moment held together.  No kernel runs here.
 
 The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
 chunk) holds only graphs whose ids have community locality: on plain
@@ -192,6 +204,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3294,6 +3307,279 @@ def phase_lm_serve() -> dict:
     return out
 
 
+TRAIN_STEPS = 6
+TRAIN_CKPT_AT = 3  # the checkpoint holds the state after this many steps
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 512
+TRAIN_REMAT_STEPS = 2  # per remat setting, for its peak memory and s/step
+TRAIN_DCN_STEPS = 4
+# the resumed run's losses against the uninterrupted run's: the same
+# float32 work on restored bits, so any difference is the card's own
+# run-to-run order (reported as bit_identical)
+TRAIN_RESUME_RTOL = 1e-5
+# card against CPU (DESIGN.md §5's float32 class): loss rtol 1e-5; grad
+# norm, parameters and moments rtol 1e-4, atol 1e-4 * max|CPU leaf|
+TRAIN_LOSS_RTOL, TRAIN_STATE_RTOL = 1e-5, 1e-4
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def all_launches() -> int:
+    from repro_torch.kernels import csr_spmm, delta_decode, flash_decode, segment_reduce
+
+    return sum(sum(m.LAUNCHES.values())
+               for m in (csr_spmm, delta_decode, flash_decode, segment_reduce))
+
+
+def train_args(arch: str, steps: int, batch: int, device: str, reduced=False, seq=None):
+    from repro_torch.launch import train as launch
+
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch), "--device", device,
+            "--seed", str(SEED), "--log-every", "1"]
+    return launch.parser().parse_args(argv + (["--reduced"] if reduced else [])
+                                      + (["--seq", str(seq)] if seq else []))
+
+
+def timed_steps(step_fn, times: list):
+    """``step_fn`` with each call's wall time, synchronized, in ``times``."""
+    import torch
+
+    def step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    return step
+
+
+def steady(times: list) -> float:
+    """Median step time after the first (which pays the warm-up)."""
+    return statistics.median(times[1:]) if len(times) > 1 else times[0]
+
+
+def lm_train_run(cfg, args, lines: list) -> dict:
+    """The uninterrupted 6 steps with the step-3 checkpoint, then the
+    restore into a fresh state and steps 4-6 again."""
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.dist.fault_tolerance import ResumableRun
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_step as TS
+
+    class Run(ResumableRun):
+        """Times its save; saves once (a second save at step 6 would only
+        cost time)."""
+
+        save_s = None
+
+        def maybe_save(self, step, state):
+            if self.save_s is not None:
+                return False
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if super().maybe_save(step, state):
+                self.save_s = time.perf_counter() - t
+                return True
+            return False
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    params, step_fn, batch_fn = launch.make_lm_run(cfg, args)
+    run = Run(str(TRAIN_CKPT_DIR), lambda: TS.init_state(params), save_every=TRAIN_CKPT_AT,
+              device="cuda")
+    start, state = run.restore_or_init()
+    if start != 0:
+        raise AssertionError(f"train: a fresh checkpoint directory restored step {start}")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    state, whole = launch.train_loop(timed_steps(step_fn, times), batch_fn, state, 0,
+                                     TRAIN_STEPS, run, log=lines.append)
+    peak = torch.cuda.max_memory_allocated()
+    if ckpt.list_steps(str(TRAIN_CKPT_DIR)) != [TRAIN_CKPT_AT]:
+        raise AssertionError(f"train: checkpoints {ckpt.list_steps(str(TRAIN_CKPT_DIR))}")
+    step_dir = TRAIN_CKPT_DIR / f"step_{TRAIN_CKPT_AT:09d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    final = state
+    del state
+    gc.collect()
+
+    run2 = ResumableRun(str(TRAIN_CKPT_DIR), lambda: TS.init_state(params),
+                        save_every=TRAIN_CKPT_AT, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start, fresh = run2.restore_or_init()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    if start != TRAIN_CKPT_AT or int(fresh.opt.step) != TRAIN_CKPT_AT:
+        raise AssertionError(f"train: restored step {start}, opt.step {int(fresh.opt.step)}")
+    fresh, resumed = launch.train_loop(step_fn, batch_fn, fresh, start, TRAIN_STEPS, None,
+                                       log=lines.append)
+    tail = whole[TRAIN_CKPT_AT:]
+    if [h["step"] for h in resumed] != [h["step"] for h in tail]:
+        raise AssertionError("train: the resumed run took other steps")
+    for a, b in zip(resumed, tail):
+        for k in ("loss", "grad_norm", "lr"):
+            if not np.isfinite(a[k]) or abs(a[k] - b[k]) > TRAIN_RESUME_RTOL * abs(b[k]):
+                raise AssertionError(f"train: resumed step {a['step']} {k} {a[k]} != {b[k]}")
+    same = all(a == b for a, b in zip(resumed, tail))
+    same_state = all(torch.equal(x, y) for x, y in zip(_leaves(fresh), _leaves(final)))
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    first_loss(whole, np.log(cfg.vocab), 0.5, "smollm-360m")
+    s = steady(times)
+    return {"steps": whole, "resumed": resumed, "step_s": times,
+            "s_per_step": s, "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / s,
+            "max_memory_allocated": peak,
+            "checkpoint": {"at_step": TRAIN_CKPT_AT, "bytes": ckpt_bytes, "save_s": run.save_s,
+                           "restore_s": restore_s, "leaves": len(_leaves(final))},
+            "resume": {"rtol": TRAIN_RESUME_RTOL, "bit_identical_metrics": same,
+                       "bit_identical_state": same_state}}
+
+
+def first_loss(hist: list, want: float, tol: float, what: str) -> None:
+    """Every metric finite, and the first loss within ``tol`` of ``want``
+    (a random model's: ln V for the LM, ln 2 for the CTR head)."""
+    if not all(np.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm", "lr")):
+        raise AssertionError(f"train: {what} metrics not finite: {hist}")
+    if abs(hist[0]["loss"] - want) > tol:
+        raise AssertionError(f"train: {what} first loss {hist[0]['loss']}, not near {want}")
+
+
+def _leaves(tree):
+    from repro_torch import _tree
+
+    return _tree.leaves(tree)
+
+
+def remat_run(cfg, args) -> dict:
+    """TRAIN_REMAT_STEPS steps at ``cfg.remat`` from a fresh state (the
+    state alone held before the peak counter is reset): peak memory and
+    s/step."""
+    import torch
+
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_step as TS
+
+    params, step_fn, batch_fn = launch.make_lm_run(cfg, args)
+    state = TS.init_state(params)
+    del params
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = launch.train_loop(timed_steps(step_fn, times), batch_fn, state, 0,
+                                    TRAIN_REMAT_STEPS, log=lambda line: None)
+    out = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "s_per_step": steady(times), "step_s": times, "loss": [h["loss"] for h in hist]}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_against_cpu(arch: str, batch: int, seq=None) -> dict:
+    """Two steps (the first at lr 0, the WSD warm-up's first value) of a
+    REDUCED config on the card and on the CPU from the same parameters
+    and batches: loss, grad norm, lr and every leaf of the state."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_step as TS
+
+    make = launch.make_lm_run if arch == "smollm-360m" else launch.make_dcn_run
+    cfg = registry.get(arch).reduced
+    cpu_params, cpu_step, cpu_batch = make(cfg, train_args(arch, 2, batch, "cpu", True, seq))
+    _, gpu_step, gpu_batch = make(cfg, train_args(arch, 2, batch, "cuda", True, seq))
+    cpu = TS.init_state(cpu_params)
+    gpu = TS.init_state(_tree.tree_map(lambda p: p.to("cuda"), cpu_params))
+    worst = {"loss": 0.0, "grad_norm": 0.0, "state": 0.0}
+    for step in range(2):
+        cpu, cm = cpu_step(cpu, cpu_batch(step))
+        gpu, gm = gpu_step(gpu, gpu_batch(step))
+        for k, rtol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_STATE_RTOL),
+                        ("lr", TRAIN_STATE_RTOL)):
+            err = check_close(gm[k].cpu(), cm[k], f"train {arch} step {step} {k}", rtol,
+                              rtol * abs(float(cm[k])))
+            if k in worst:
+                worst[k] = max(worst[k], err / max(abs(float(cm[k])), 1e-30))
+        for (path, g), c in zip(_tree.flatten_with_paths(gpu), _tree.leaves(cpu)):
+            if c.is_floating_point():
+                scale = max(float(c.abs().max()), 1e-30)
+                err = check_close(g.cpu(), c, f"train {arch} step {step} {path}",
+                                  TRAIN_STATE_RTOL, TRAIN_STATE_RTOL * scale)
+                worst["state"] = max(worst["state"], err / scale)
+            elif not torch.equal(g.cpu(), c):
+                raise AssertionError(f"train {arch} step {step} {path}: {g} != {c}")
+    return {"config": cfg.name, "steps": 2, "max_rel_err": worst,
+            "loss": [float(cm["loss"]), float(gm["loss"])]}
+
+
+def phase_train() -> dict:
+    """Training on the card through ``repro_torch.launch.train``: the LM and
+    recsys runs at full width, the checkpoint resume, remat's memory, and
+    the card held to the CPU.  No hand kernel is on this path (the
+    reference's trainers reach no Pallas kernel): the phase asserts that
+    no kernel launched."""
+    import torch
+
+    from repro_torch.configs import dcn_v2, smollm_360m
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_step as TS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train: TF32 is on; training runs in full float32")
+    launches = all_launches()
+    cfg = smollm_360m.FULL
+    out = {"phase": "train", "config": cfg.name, "dtype": "float32",
+           "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "param_count": cfg.param_count()}
+    lines = []
+    args = train_args("smollm-360m", TRAIN_STEPS, TRAIN_LM_BATCH, "cuda", seq=TRAIN_LM_SEQ)
+    out["lm"] = lm_train_run(cfg, args, lines)
+    out["lm"]["log"] = lines
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = {}
+    for mode in ("none", "full", "dots"):
+        remat[mode] = remat_run(dataclasses.replace(cfg, remat=mode),
+                                train_args("smollm-360m", TRAIN_REMAT_STEPS, TRAIN_LM_BATCH,
+                                           "cuda", seq=TRAIN_LM_SEQ))
+        remat[mode]["tokens_per_s"] = TRAIN_LM_BATCH * TRAIN_LM_SEQ / remat[mode]["s_per_step"]
+    if not remat["full"]["max_memory_allocated"] < remat["none"]["max_memory_allocated"]:
+        raise AssertionError(f"train: remat full peak {remat['full']['max_memory_allocated']} "
+                             f"not below none {remat['none']['max_memory_allocated']}")
+    out["remat"] = remat
+
+    dcfg = dcn_v2.FULL
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    params, step_fn, batch_fn = launch.make_dcn_run(
+        dcfg, train_args("dcn-v2", TRAIN_DCN_STEPS, B, "cuda"))
+    state = TS.init_state(params)
+    del params
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = launch.train_loop(timed_steps(step_fn, times), batch_fn, state, 0,
+                                    TRAIN_DCN_STEPS, log=lambda line: None)
+    first_loss(hist, np.log(2.0), 0.1, "dcn-v2")
+    table = state.params["embed"]["tables"]
+    s = steady(times)
+    out["dcn"] = {"config": dcfg.name, "batch": B, "steps": hist, "step_s": times,
+                  "s_per_step": s, "samples_per_s": B / s,
+                  "table_bytes": table.numel() * table.element_size(),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del state, table
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["card_vs_cpu"] = [card_against_cpu("smollm-360m", 4, 64), card_against_cpu("dcn-v2", 64)]
+    out["kernel_launches"] = all_launches() - launches
+    if out["kernel_launches"]:
+        raise AssertionError(f"train: {out['kernel_launches']} hand-kernel launches on a path "
+                             "that has none")
+    emit(out)
+    return out
+
+
 def sharded_row(cases, name: str) -> dict | None:
     """A kernel row's numbers at the sharded path's default launch shape
     (per shard, D = 1)."""
@@ -3390,6 +3676,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_serve = run("lm_serve", phase_lm_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("train", phase_train)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     emit({"autotune_by_phase": {k: v for k, v in tuning.items() if v["consults"]},
           "autotune_total": tune_totals()})

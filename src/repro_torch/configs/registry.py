@@ -1,12 +1,12 @@
-"""Architecture registry, the dense-LM, GNN and stream parts:
-``LM_SHAPES``, ``GNNConfig``, ``GNN_SHAPES``, ``STREAM_SHAPES``,
-``StreamConfig``, ``ArchSpec`` and ``get`` over the archs the port has.
+"""Architecture registry, the dense-LM, GNN, recsys and stream parts:
+``LM_SHAPES``, ``GNNConfig``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
+``DCNConfig``, ``STREAM_SHAPES``, ``StreamConfig``, ``ArchSpec`` and
+``get`` over the archs the port has.
 
-Counterpart of ``repro/configs/registry.py:19-41``, ``:49-53``,
-``:56-79``, ``:95-99`` and ``:111-115``.  ``aspen-stream`` is the paper's
-own configuration.  Each config module defines FULL (the assigned numbers),
-REDUCED (smoke scale) and the shape set of its family.  The LM configs
-are ``models.transformer.LMConfig``s.
+Counterpart of ``repro/configs/registry.py:19-99`` and ``:111-115``.
+``aspen-stream`` is the paper's own configuration.  Each config module
+defines FULL (the assigned numbers), REDUCED (smoke scale) and the shape
+set of its family.  The LM configs are ``models.transformer.LMConfig``s.
 """
 from __future__ import annotations
 
@@ -37,6 +37,12 @@ GNN_SHAPES: Dict[str, Dict[str, Any]] = {
     },
 }
 
+RECSYS_SHAPES: Dict[str, Dict[str, Any]] = {
+    "train_batch": {"batch": 65_536, "kind": "train"},
+    "serve_p99": {"batch": 512, "kind": "serve"},
+    "serve_bulk": {"batch": 262_144, "kind": "serve"},
+    "retrieval_cand": {"batch": 1, "n_candidates": 1_000_000, "kind": "retrieval"},
+}
 
 STREAM_SHAPES: Dict[str, Dict[str, Any]] = {
     "update_2m": {"pool_edges": 1 << 28, "batch_edges": 1 << 21, "n_nodes": 1 << 25, "kind": "update"},
@@ -48,7 +54,7 @@ STREAM_SHAPES: Dict[str, Dict[str, Any]] = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # lm | gnn | stream (the port's families so far)
+    family: str  # lm | gnn | recsys | stream
     full: Any  # family config object (exact assigned numbers)
     reduced: Any  # smoke-scale config
     shapes: Dict[str, Dict[str, Any]]
@@ -71,6 +77,18 @@ class GNNConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DCNConfig:
+    name: str
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 16
+    n_cross: int = 3
+    mlp_dims: Tuple[int, ...] = (1024, 1024, 512)
+    vocab_per_field: int = 1_000_000
+    n_candidates: int = 1_000_000
+
+
+@dataclasses.dataclass(frozen=True)
 class StreamConfig:
     name: str
     b: int = 256
@@ -78,7 +96,7 @@ class StreamConfig:
 
 
 ARCH_IDS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b", "graphsage-reddit", "gcn-cora",
-            "aspen-stream"]
+            "dcn-v2", "aspen-stream"]
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

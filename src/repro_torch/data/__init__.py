@@ -1,1 +1,2 @@
-"""Synthetic graph inputs (counterpart of ``repro/data``)."""
+"""Synthetic inputs (counterpart of ``repro/data``): graphs, and the
+token and recsys batches."""

@@ -1,8 +1,13 @@
-"""GNN data pipeline: the neighbour sampler and the power-law stand-in graph.
+"""Data pipelines: the token and recsys batch makers, the neighbour
+sampler and the power-law stand-in graph.
 
-Counterpart of ``repro/data/pipeline.py:71-123`` (the other batch makers
-come with their models).  Every batch is a pure function of
-(seed, step): restart-safe.
+Counterpart of ``repro/data/pipeline.py:17-39`` and ``:71-123``
+(``molecule_batch`` comes with SchNet, ROADMAP item 14).  Every batch is
+a pure function of (seed, step) — the fault-tolerance contract: after a
+restore at step k the pipeline re-produces exactly the batch it would
+have produced, with no stateful iterator to checkpoint.  The batch
+makers return the reference's numpy draws, bit for bit; the trainer
+moves them to its device.
 
 The sampler reads a CSR held on the device — exactly the Aspen flat
 graph pool's layout (``offsets``, and ``keys & 0xFFFFFFFF`` as the
@@ -19,6 +24,34 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+
+def token_batch(seed: int, step: int, batch: int, seq_len: int, vocab: int,
+                host_id: int = 0, n_hosts: int = 1) -> Dict[str, np.ndarray]:
+    """Synthetic LM batch (a markov-ish stream, so the loss is learnable):
+    int64 ``tokens`` and ``labels`` (batch // n_hosts, seq_len).  Each
+    host draws its own slice — the multi-host sharding contract."""
+    rng = np.random.default_rng((seed * 1_000_003 + step) * 64 + host_id)
+    shard = batch // n_hosts
+    base = rng.integers(0, vocab, size=(shard, seq_len + 1), dtype=np.int64)
+    # inject local structure: next token correlated with current
+    corr = (base[:, :-1] * 31 + 7) % vocab
+    take = rng.random((shard, seq_len)) < 0.5
+    base[:, 1:][take] = corr[take]
+    return {"tokens": base[:, :-1], "labels": base[:, 1:]}
+
+
+def recsys_batch(seed: int, step: int, batch: int, n_dense: int = 13,
+                 n_sparse: int = 26, vocab: int = 100_000) -> Dict[str, np.ndarray]:
+    """Synthetic CTR batch: float32 ``dense`` (batch, n_dense), int64
+    ``sparse_ids`` (batch, n_sparse) below ``vocab``, float32 ``labels``
+    (a quarter positive)."""
+    rng = np.random.default_rng((seed * 999_983 + step))
+    return {
+        "dense": rng.standard_normal((batch, n_dense)).astype(np.float32),
+        "sparse_ids": rng.integers(0, vocab, size=(batch, n_sparse)),
+        "labels": (rng.random(batch) < 0.25).astype(np.float32),
+    }
 
 
 class NeighborSampler:

@@ -31,6 +31,14 @@ of the real shape from a seeded generator on the call's device, pass
 explicit tiles (so a candidate's call skips the consult), and are
 dropped, with their inputs, when the consult returns.  On the CPU the
 consult returns the defaults and the plain versions run.
+
+No hand kernel has a backward (nor has the reference's: it defines no
+``custom_vjp``), so a kernel's output carries no ``grad_fn``.  Every
+wrapper here that reaches a kernel raises ``RuntimeError`` when grad
+mode is on and a float input requires grad, on every device, and names
+the plain version to differentiate through; otherwise the CPU, where the
+plain version runs and carries gradients, and the card, where the
+kernel drops them, would train differently without an error.
 """
 from __future__ import annotations
 
@@ -41,6 +49,17 @@ from .._device import resolve
 from ..core import compressed as cz
 from ..core.chunks import PackedDeltas
 from . import autotune, csr_spmm, delta_decode, flash_decode, segment_reduce
+
+
+def _no_autograd(name: str, plain: str, *inputs) -> None:
+    """Raise if autograd would need a backward through the hand kernel."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad and t.is_floating_point() for t in inputs):
+        raise RuntimeError(
+            f"kernels.ops.{name}: an input requires grad, and the hand kernel has no "
+            f"backward (as in the reference, which defines no custom_vjp); call it under "
+            f"torch.no_grad() or on detached inputs, or differentiate through the plain "
+            f"path {plain}")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +177,7 @@ def segment_sum(dst: torch.Tensor, msg: torch.Tensor, n_out: int,
     """Sorted segment sum: float32 (n_out, D) from dst (E,) and msg (E, D).
     ``tile``: slots a block of the kernel's pass; default the autotuner's
     winner for the shape."""
+    _no_autograd("segment_sum", "kernels.segment_reduce.segment_sum_sorted_plain", msg)
     E, D = msg.shape
     if tile is None:
         tile = _tile("segment_sum", {"E": E, "n": n_out, "D": D},
@@ -173,6 +193,8 @@ def segment_sum_weighted(
 ) -> torch.Tensor:
     """Weighted sorted segment sum (out[d] = sum w[e] * msg[e]); same
     dropping contract and tile as ``segment_sum``."""
+    _no_autograd("segment_sum_weighted",
+                 "kernels.segment_reduce.segment_sum_weighted_sorted_plain", w, msg)
     E, D = msg.shape
     if tile is None:
         tile = _tile("segment_sum_weighted", {"E": E, "n": n_out, "D": D},
@@ -237,6 +259,8 @@ def segment_sum_chunked(
     msg row ``r * CHUNK + c`` pairs with chunk ``r`` column ``c``.  Pass
     ``hi``/``wide`` for adaptive streams (which consult under this
     kernel's key, as the reference's do)."""
+    _no_autograd("segment_sum_chunked", "kernels.segment_reduce.segment_sum_sorted_chunked_plain",
+                 msg)
     if tile is None:
         tile = _chunked_tile("segment_sum_chunked", deltas, msg, n_out, False, hi is not None)
     args = _chunk_args(anchors, deltas, ovf_pos, ovf_add)
@@ -261,6 +285,8 @@ def segment_sum_weighted_chunked(
     tile: int | None = None,
 ) -> torch.Tensor:
     """Weighted ``segment_sum_chunked`` (weight pads are 0)."""
+    _no_autograd("segment_sum_weighted_chunked",
+                 "kernels.segment_reduce.segment_sum_weighted_chunked_plain", w, msg)
     if tile is None:
         tile = _chunked_tile("segment_sum_weighted_chunked", deltas, msg, n_out, True,
                              hi is not None)
@@ -287,6 +313,8 @@ def _chunk_args(anchors, deltas, ovf_pos, ovf_add):
 def fanout_aggregate(feats: torch.Tensor, mask: torch.Tensor, op: str = "mean") -> torch.Tensor:
     """Masked mean / sum / max over the K sampled neighbours: (B, K, D)
     features and a (B, K) mask of any type (cast to float32) -> (B, D)."""
+    _no_autograd("fanout_aggregate", "kernels.segment_reduce.fanout_aggregate_plain",
+                 feats, mask)
     return segment_reduce.fanout_aggregate(
         feats.to(torch.float32).contiguous(), mask.to(torch.float32).contiguous(), op)
 
@@ -300,6 +328,7 @@ def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
     """Single-token GQA attention: q (BH, Q, d), k and v (BH, S, d) of any
     S, ``lengths`` (BH,) valid keys per row -> (BH, Q, d) in q's dtype."""
+    _no_autograd("flash_decode_attn", "kernels.flash_decode.flash_decode_plain", q, k, v)
     return flash_decode.flash_decode(q, k, v, lengths)
 
 
@@ -310,6 +339,7 @@ def flash_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def spmm(tile_mask: torch.Tensor, a_tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Block-dense ``A @ x`` over unmasked tiles: float32 (nr * R, D)."""
+    _no_autograd("spmm", "kernels.csr_spmm.block_spmm_plain", a_tiles, x)
     return csr_spmm.block_spmm(tile_mask.to(torch.int32).contiguous(),
                                a_tiles.to(torch.float32).contiguous(),
                                x.to(torch.float32).contiguous())
@@ -345,6 +375,8 @@ def spmm_from_edges(n: int, src, dst, x: torch.Tensor, vals=None,
     (``csr_spmm.tiles_from_edges``), moved to x's device, then ``spmm``;
     returns float32 (n, D).  The tiles are the autotuner's winner for
     ``{"n", "m"}`` (its sweep runs at x's width) unless both are named."""
+    _no_autograd("spmm_from_edges", "kernels.csr_spmm.block_spmm_plain over the tiles of "
+                 "kernels.csr_spmm.tiles_from_edges", x, vals)
     if row_tile is None or col_tile is None:
         m = int(np.asarray(src).shape[0])
         tuned = autotune.get_params("spmm", {"n": n, "m": m},

@@ -1,2 +1,2 @@
-"""Launchers.  ``serve`` is the counterpart of ``repro/launch/serve.py``;
-the training, dry-run and cell launchers come with ROADMAP item 14."""
+"""Launchers: ``serve`` and ``train``, the counterparts of
+``repro/launch/serve.py`` and ``repro/launch/train.py``."""

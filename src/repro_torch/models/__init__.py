@@ -1,1 +1,2 @@
-"""Models on the port (counterpart of ``repro/models``): the GNNs so far."""
+"""Models on the port (counterpart of ``repro/models``): the dense LMs,
+the GNNs and DCN-v2."""

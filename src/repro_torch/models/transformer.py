@@ -1,25 +1,37 @@
-"""Dense decoder-only LM (llama / qwen / starcoder families): inference.
+"""Dense decoder-only LM (llama / qwen / starcoder families).
 
 Counterpart of the dense part of ``repro/models/transformer.py``.  Layer
 parameters are stacked with a leading ``n_layers`` axis, as the
 reference's vmapped init leaves them, and the layers run as a Python
-loop over that axis (the reference's ``lax.scan``).  Covers prefill
-(``forward``) and single-token decode with a KV cache of shape
-(n_layers, B, S_max, n_kv, d_head); ``decode_step`` writes the cache in
-place and returns the same tensors (the reference returns new arrays).
+loop over that axis (the reference's ``lax.scan``).  Covers the training
+forward and ``loss_fn``, prefill (``forward``) and single-token decode
+with a KV cache of shape (n_layers, B, S_max, n_kv, d_head);
+``decode_step`` writes the cache in place and returns the same tensors
+(the reference returns new arrays).
 
-Left out, with their reasons: ``remat`` and ``unroll_layers`` steered
-``jax.checkpoint`` and the scan's cost accounting, which eager inference
-has no use for; ``moe_impl`` and the MoE layers (``MoEFields``, a config
-with ``moe`` set) come with ROADMAP item 14 and raise until then;
-``loss_fn`` comes with training (item 14).
+``remat`` is the reference's activation-checkpoint policy, applied to
+each layer of the loop: ``"full"`` keeps only the layer's input and
+recomputes the rest in the backward pass
+(``torch.utils.checkpoint.checkpoint``); ``"dots"``, the counterpart of
+``checkpoint_dots_with_no_batch_dims``, keeps the outputs of the
+matrix products with no batch dimension (the projections and MLP
+matrices: ``aten.mm``, and the one-batch ``aten.bmm`` that ``einsum``
+lays such a product out as) and recomputes everything else.  At one
+sequence and one kv head the attention products are one-batch too and
+are kept as well.  Gradients are the same under all three.
+
+Left out: ``unroll_layers`` only steered XLA's cost accounting of the
+scan; ``moe_impl`` and the MoE layers (``MoEFields``, a config with
+``moe`` set) come with ROADMAP item 14 and raise until then.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .._device import resolve
 from . import layers as L
@@ -52,6 +64,7 @@ class LMConfig:
     norm: str = "rmsnorm"
     tie_embeddings: bool = True
     moe: Optional[Any] = None  # must stay None: MoE is ROADMAP item 14
+    remat: str = "none"  # none | full | dots (activation checkpoint policy)
 
     def __post_init__(self):
         if self.moe is not None:
@@ -142,17 +155,43 @@ def _mlp(cfg: LMConfig, p, x):
     return L.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else L.swiglu(p, x)
 
 
+def _block(cfg: LMConfig, lp, x, positions):
+    h = x + L.attention(lp["attn"], cfg.attn_config, _norm(cfg, lp["ln1"], x), positions)
+    return h + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products with no batch dimension, recompute the rest."""
+    if op is torch.ops.aten.mm.default or (op is torch.ops.aten.bmm.default
+                                           and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
 def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     """(B, S) tokens -> (B, S, V) float32 logits."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None, :]
+    body = functools.partial(_block, cfg)
+    if cfg.remat == "full":
+        body = functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+    elif cfg.remat == "dots":
+        body = functools.partial(ckpt.checkpoint, body, use_reentrant=False,
+                                 context_fn=_dots_context)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = x + L.attention(lp["attn"], cfg.attn_config, _norm(cfg, lp["ln1"], x), positions)
-        x = h + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], h))
+        x = body(_layer(params["layers"], i), x, positions)
     x = _norm(cfg, params["ln_f"], x)
     return L.unembed(params["embed"], x)
+
+
+def loss_fn(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = forward(params, cfg, tokens)
+    return L.cross_entropy(logits, labels)
 
 
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -83,7 +83,7 @@ def no_kernel(monkeypatch):
 # configs and parameters
 # ---------------------------------------------------------------------------
 
-DROPPED = {"moe_impl", "remat", "unroll_layers"}
+DROPPED = {"moe_impl", "unroll_layers"}
 
 
 def test_configs_match_reference():
