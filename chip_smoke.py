@@ -170,6 +170,28 @@ checks every result.  One JSON object per phase goes to stdout:
           smollm and REDUCED dcn-v2 on the card and on the CPU from the
           same parameters and batches, loss, grad norm and every
           parameter and moment held together.  No kernel runs here.
+  moe_serve
+          qwen3-moe-30b-a3b FULL (48 layers, 128 experts top-8, 59.5 GB)
+          and deepseek-moe-16b FULL (28 layers, 64 experts top-6 and 2
+          shared, 33.3 GB) in bf16, initialised on the card (the peak held
+          to the weights plus one layer): ``make_prefill`` at B = 1, S =
+          2048 with the share of (token, slot) pairs dropped at capacity
+          1.25; ``generate`` on the kernel at B = 8, prompts of 5-32 tokens,
+          on a 4096-position cache; decode steps over a drawn 4096-position
+          history with row 12 held to its plain version at each config's
+          cache shape (Q = 8, d = 64; Q = 1, d = 128) and timed beside its
+          bound and SDPA; two full-width layers in float32, the flash step
+          against the plain one, and the MoE layer at a capacity that drops
+          nothing against a dense per-token top-k; the REDUCED configs'
+          ``route``, ``moe_apply`` and decode on the card against the CPU;
+  gnn_molecule
+          SchNet FULL steps through ``make_train_step(schnet_loss)`` on the
+          ``molecule`` shape (128 molecules of 30 atoms and 64 edges);
+          GraphCast FULL's forward on ``build_multimesh(6)`` (40,962 nodes,
+          327,660 edges) and three training steps at full width and depth
+          on ``build_multimesh(5)`` (refinement cut: the reference has no
+          GNN remat); both REDUCED models on the card against the CPU.  No
+          kernel runs here.
 
 The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
 chunk) holds only graphs whose ids have community locality: on plain
@@ -825,6 +847,30 @@ def launch_split(fn, reps: int = 20) -> dict:
               for ev in prof.key_averages()
               if device_us(ev) > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA")}
     return {"host_us": host_us, "device": device}
+
+
+def step_profile(fn) -> tuple:
+    """(fn(), where one call's time goes): its wall ms under
+    ``torch.profiler`` (synchronized), the card's kernel ms and kernel
+    count (the CUDA-typed key averages, one stream: no overlap), the host's
+    launch calls, and the card's busy share of the wall time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    avgs = prof.key_averages()
+    cuda = [ev for ev in avgs if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    kernel_ms = sum(device_us(ev) for ev in cuda) / 1e3
+    launches = sum(ev.count for ev in avgs if ev.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                                          "cuLaunchKernel"))
+    return out, {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+                 "kernels": sum(ev.count for ev in cuda), "launch_calls": launches,
+                 "busy_share": kernel_ms / wall_ms if wall_ms else None}
 
 
 def check_equal(got, want, what: str) -> float:
@@ -2828,7 +2874,7 @@ def phase_gnn_full() -> dict:
     if tuple(logits.shape) != (n, cfg.n_classes) or not bool(logits.isfinite().all()):
         raise AssertionError(f"gnn_full: logits {tuple(logits.shape)} not finite")
     cpu = gcn.forward({"ws": [w.cpu() for w in params["ws"]]},
-                      common.GraphBatch(*(v.cpu() for v in batch)))
+                      common.GraphBatch(*(None if v is None else v.cpu() for v in batch)))
     out["gcn_vs_cpu_max_abs_err"] = check_close(logits.cpu(), cpu, "gnn_full gcn vs cpu", 1e-5,
                                              1e-5 * float(cpu.abs().max()))
     m = int(g.m)
@@ -3023,7 +3069,6 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
     0's kernel call is held against its plain version."""
     import torch
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models import transformer as T
 
@@ -3066,16 +3111,33 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
         cache = new
         out["steps"].append(res)
     out["launches"] = dict(fd.LAUNCHES)  # read just after the main path
-    q0 = _layer0_query(params, cfg, {"len": cache["len"] - 1}, tokens[-1])
+    out["kernel"] = flash_kernel_row(name, params, cfg, cache, tokens[-1])
+    return out
+
+
+def flash_kernel_row(name: str, params, cfg, cache, last_tok) -> dict:
+    """Layer 0's kernel call of the last decode step (``last_tok`` at the
+    cache's lengths less one) against its plain version, timed per call
+    and back to back beside its bound, the plain version and SDPA; its
+    plan, route, workspace, tensor-map cost and the per-call argtypes
+    cost.  Every call here is a comparison: no count changes."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_decode as fd
+
+    saved = dict(fd.LAUNCHES)
+    B = last_tok.shape[0]
+    q0 = _layer0_query(params, cfg, {"len": cache["len"] - 1}, last_tok)
     lens = cache["len"]  # the last step's lengths, its own token included
     kc, vc = cache["k"][0], cache["v"][0]
     want = fd.flash_decode_cache_plain(q0, kc, vc, lens)
-    got = fd.flash_decode_cache(q0, kc, vc, lens)  # a comparison, after the count was read
+    got = fd.flash_decode_cache(q0, kc, vc, lens)
     keys = int(torch.clamp(lens, max=kc.shape[1]).sum()) * cfg.n_kv_heads
     bound_ms, bound_by = flash_bound(keys, B * cfg.n_kv_heads, q0.shape[2], cfg.head_dim,
                                      kc.element_size(), q0.element_size())
     sdpa_q = q0.reshape(B, cfg.n_heads, 1, cfg.head_dim)
-    out["kernel"] = {
+    k = {
         "shape": {"B": B, "n_kv": cfg.n_kv_heads, "Q": q0.shape[2], "d": cfg.head_dim,
                   "S_max": kc.shape[1], "valid_keys": keys},
         "max_abs_err": check_close(got, want, f"{name} layer 0 kernel", **flash_tol(want)),
@@ -3093,7 +3155,6 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
                                   int(kc.dtype == torch.bfloat16), 1, kc.device))),
         "route": flash_route(lambda: fd.flash_decode_cache(q0, kc, vc, lens))[1],
     }
-    k = out["kernel"]
     k["workspace_bytes"] = 4 * fd.workspace_floats(B * cfg.n_kv_heads, k["plan"]["n_split"],
                                                    q0.shape[2], cfg.head_dim)
     k["tma_map_encode_ns"] = tma_map_ns(kc, k["plan"]["keys_per_tile"])
@@ -3106,7 +3167,8 @@ def lm_decode_steps(name: str, params, cfg, cache, tokens) -> dict:
         fd.flash_decode_cache(q0, kc, vc, lens)
 
     k["pipelined_ms_argtypes_per_call"] = time_uncounted(fresh_argtypes, time_ms_pipelined)
-    return out
+    fd.LAUNCHES.update(saved)
+    return k
 
 
 def tma_map_ns(kc, box_rows: int) -> float:
@@ -3580,6 +3642,519 @@ def phase_train() -> dict:
     return out
 
 
+# moe_serve: per arch, generate's new tokens and the long-context decode
+# steps (deepseek-moe "the same way, with fewer steps")
+MOE_SERVE = (("qwen3-moe-30b-a3b", 16, 3), ("deepseek-moe-16b", 8, 3))
+MOE_PREFILL_S = 2048  # cut from prefill_32k's 32 x 32,768 (the logits alone: 637 GB)
+MOE_GEN_B, MOE_CACHE = 8, 4096  # cut from decode_32k's B 128 at 32,768
+MOE_CHECK_LAYERS = 2  # the float32 full-width check's depth
+# float32 decode through the kernel against the same step without it at
+# full width: two float32 orders of the attention sums, then the experts'
+# products (as PREFILL_RTOL)
+MOE_F32_RTOL = 1e-4
+MOE_DENSE_TOKENS = 32  # the no-drop layer held against a per-token top-k
+# card against CPU at the REDUCED configs (float32, TF32 off)
+MOE_CARD_RTOL = 1e-5
+
+
+def routed(fn):
+    """(fn(), kept pairs, all pairs, each call's dropped share) over every
+    ``models.moe.route`` call that ``fn`` makes (the MoE layers' own)."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    calls = []
+    orig = M.route
+
+    def counting(params, cfg, xt):
+        r = orig(params, cfg, xt)
+        calls.append((r.keep.sum(), r.keep.numel()))
+        return r
+
+    M.route = counting
+    try:
+        out = fn()
+    finally:
+        M.route = orig
+    kept = [int(k) for k, _ in calls]
+    return out, sum(kept), sum(n for _, n in calls), [1 - k / n for k, (_, n) in zip(kept, calls)]
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def moe_init_on_card(cfg, dtype, gen) -> tuple:
+    """``init_params`` on the card, its seconds, and its peak held to one
+    copy of the stack plus one layer (and the largest leaf's float32 draw
+    and scaled copy)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    params = T.init_params(gen, cfg, dtype=dtype, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    layer = tree_bytes(T._layer(params["layers"], 0))
+    draw = 8 * max(p[0].numel() for p in _leaves(params["layers"]))
+    limit = tree_bytes(params) + layer + draw + (64 << 20)
+    if peak > limit:
+        raise AssertionError(f"init_params {cfg.name}: peak {peak} over the stack, one layer "
+                             f"and a draw ({limit})")
+    return params, {"s": secs, "param_bytes": tree_bytes(params), "layer_bytes": layer,
+                    "peak_bytes": peak, "peak_limit_bytes": limit}
+
+
+def moe_generate(name: str, params, cfg, max_new: int, gen) -> dict:
+    """``generate`` on the kernel in bf16 at B = MOE_GEN_B, prompts of 5-32
+    tokens left-padded, on a MOE_CACHE-position cache: ms per step, new
+    tokens / s, peak bytes; one TMA launch a layer and step."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.serve import decode as serve
+
+    lens = torch.randint(5, 33, (MOE_GEN_B,), generator=gen, device="cuda").tolist()
+    prompt = serve.pad_requests([torch.randint(1, cfg.vocab, (n,), generator=gen, device="cuda")
+                                 for n in lens])
+    S0 = prompt.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launches()
+    t = time.perf_counter()
+    toks = serve.generate(params, cfg, prompt, max_new, max_len=MOE_CACHE, use_flash_kernel=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    n_steps = S0 + max_new - 1
+    launches = fd.LAUNCHES["flash_decode"]
+    if launches != n_steps * cfg.n_layers or fd.LAUNCHES["flash_decode_tma"] != launches:
+        raise AssertionError(f"{name} generate: {fd.LAUNCHES}, not {n_steps * cfg.n_layers} "
+                             "flash launches on the TMA route")
+    new = toks[:, S0:]
+    if (tuple(toks.shape) != (MOE_GEN_B, S0 + max_new) or not torch.equal(toks[:, :S0], prompt)
+            or int(new.min()) < 0 or int(new.max()) >= cfg.vocab):
+        raise AssertionError(f"{name} generate: tokens {tuple(toks.shape)} out of shape or range")
+    return {"B": MOE_GEN_B, "prompt_lens": lens, "padded_to": S0, "max_new": max_new,
+            "max_len": MOE_CACHE, "decode_steps": n_steps, "s": dt,
+            "ms_per_step": 1e3 * dt / n_steps, "tokens_per_s": MOE_GEN_B * max_new / dt,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "cache_bytes": 2 * cfg.n_layers * MOE_GEN_B * MOE_CACHE * cfg.n_kv_heads
+            * cfg.head_dim * 2, "launches": launches}
+
+
+def moe_decode_long(name: str, params, cfg, n_steps: int, gen) -> dict:
+    """``decode_step`` on the kernel at B = MOE_GEN_B over a MOE_CACHE
+    bf16 cache drawn on the card as a prefilled history (lengths in
+    [MOE_CACHE / 2, MOE_CACHE - n_steps]): ms per step, the last step
+    under the profiler (``step_profile``), launches, and layer 0's kernel
+    call at this config's cache shape (``flash_kernel_row``)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import transformer as T
+
+    cache = T.init_kv_cache(cfg, MOE_GEN_B, MOE_CACHE, dtype=torch.bfloat16, device="cuda")
+    for i in range(cfg.n_layers):
+        cache["k"][i].normal_(generator=gen)
+        cache["v"][i].normal_(generator=gen)
+    cache["len"] = torch.randint(MOE_CACHE // 2, MOE_CACHE - n_steps + 1, (MOE_GEN_B,),
+                                 generator=gen, device="cuda", dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab, (n_steps, MOE_GEN_B), generator=gen, device="cuda")
+    out = {"B": MOE_GEN_B, "S_max": MOE_CACHE,
+           "start_len_min_max": [int(cache["len"].min()), int(cache["len"].max())],
+           "step_ms": []}
+    fd.reset_launches()
+    for i, tok in enumerate(tokens):
+        if i == len(tokens) - 1:  # the last step under the profiler
+            (logits, cache), out["profiled_step"] = step_profile(
+                lambda: T.decode_step(params, cfg, cache, tok, use_flash_kernel=True))
+            break
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = T.decode_step(params, cfg, cache, tok, use_flash_kernel=True)
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t))
+        if tuple(logits.shape) != (MOE_GEN_B, cfg.vocab) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{name} decode: logits {tuple(logits.shape)} not finite")
+    out["launches"] = fd.LAUNCHES["flash_decode"]
+    if out["launches"] != n_steps * cfg.n_layers or fd.LAUNCHES["flash_decode_tma"] != \
+            out["launches"]:
+        raise AssertionError(f"{name} decode: {fd.LAUNCHES}, not {n_steps * cfg.n_layers} "
+                             "flash launches on the TMA route")
+    out["kernel"] = flash_kernel_row(name, params, cfg, cache, tokens[-1])
+    return out
+
+
+def moe_f32_check(name: str, cfg, gen) -> dict:
+    """MOE_CHECK_LAYERS full-width layers in float32: two decode steps
+    through the kernel, each against the same step without it from the
+    same cache state (rtol MOE_F32_RTOL); then layer 0's MoE block at a
+    capacity that drops nothing against a dense per-token top-k compute
+    (rtol 1e-5).  A comparison: the kernel's counts are put back."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    saved = dict(fd.LAUNCHES)
+    check = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS)
+    params = T.init_params(gen, check, dtype=torch.float32, device="cuda")
+    cache = T.init_kv_cache(check, MOE_GEN_B, MOE_CACHE, dtype=torch.float32, device="cuda")
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    cache["len"] = torch.randint(MOE_CACHE // 2, MOE_CACHE - 2, (MOE_GEN_B,), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+    rows = torch.arange(MOE_GEN_B, device="cuda")
+    errs = []
+    for step in range(2):
+        tok = torch.randint(0, cfg.vocab, (MOE_GEN_B,), generator=gen, device="cuda")
+        slot = cache["len"].long()
+        pre = (cache["k"][:, rows, slot].clone(), cache["v"][:, rows, slot].clone())
+        logits, new = T.decode_step(params, check, cache, tok, use_flash_kernel=True)
+        post = (cache["k"][:, rows, slot].clone(), cache["v"][:, rows, slot].clone())
+        cache["k"][:, rows, slot], cache["v"][:, rows, slot] = pre
+        plain, _ = T.decode_step(params, check, cache, tok, use_flash_kernel=False)
+        cache["k"][:, rows, slot], cache["v"][:, rows, slot] = post
+        errs.append(check_close(logits, plain, f"{name} float32 step {step}", MOE_F32_RTOL,
+                                MOE_F32_RTOL * float(plain.abs().max())))
+        cache = new
+    # the no-drop layer: capacity_factor E / k gives every expert T slots
+    m = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    nd = dataclasses.replace(check, moe=m)
+    mp = T._layer(params["layers"], 0)["mlp"]
+    x = torch.randn((1, MOE_DENSE_TOKENS, cfg.d_model), generator=gen, device="cuda")
+    got = M.moe_apply(mp, nd, x)[0]
+    r = M.route(mp, nd, x[0])
+    if not bool(r.keep.all()):
+        raise AssertionError(f"{name}: a pair dropped at capacity {r.capacity}")
+    want = torch.zeros_like(x[0])
+    for j in range(cfg.moe.top_k):  # token t's j-th expert, as one batched product
+        e = r.top_e[:, j]
+        h = torch.bmm(x[0][:, None], mp["w_gate"][e])
+        u = torch.bmm(x[0][:, None], mp["w_up"][e])
+        want += r.top_p[:, j, None] * torch.bmm(F.silu(h) * u, mp["w_down"][e])[:, 0]
+    if "shared" in mp:
+        want += L.swiglu(mp["shared"], x[0])
+    dense_err = check_close(got, want, f"{name} no-drop MoE layer vs dense top-k", 1e-5,
+                            1e-5 * float(want.abs().max()))
+    fd.LAUNCHES.update(saved)
+    return {"layers": MOE_CHECK_LAYERS, "dtype": "float32", "rtol": MOE_F32_RTOL,
+            "flash_vs_plain_max_abs_err": errs,
+            "no_drop": {"tokens": MOE_DENSE_TOKENS, "capacity": r.capacity,
+                        "vs_dense_topk_max_abs_err": dense_err}}
+
+
+def moe_card_vs_cpu(arch: str) -> dict:
+    """The REDUCED config on the card and on the CPU from the same float32
+    parameters: ``route`` exactly equal and ``moe_apply`` within
+    MOE_CARD_RTOL on 256 tokens at capacity 1.25 (the pairs it drops
+    reported), then three
+    ``decode_step``s, the card's through the kernel (launches put back),
+    the CPU's on the plain version."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    saved = dict(fd.LAUNCHES)
+    cfg = registry.get(arch).reduced
+    cpu = T.init_params(torch.Generator().manual_seed(SEED + 31), cfg, dtype=torch.float32,
+                        device="cpu")
+    gpu = _tree.tree_map(lambda p: p.to("cuda"), cpu)
+    x = torch.randn((16, 16, cfg.d_model), generator=torch.Generator().manual_seed(SEED + 32))
+    mp_c, mp_g = T._layer(cpu["layers"], 0)["mlp"], T._layer(gpu["layers"], 0)["mlp"]
+    rc, rg = M.route(mp_c, cfg, x.reshape(-1, cfg.d_model)), \
+        M.route(mp_g, cfg, x.reshape(-1, cfg.d_model).to("cuda"))
+    for f in ("top_e", "order", "keep", "src_tok"):
+        if not torch.equal(getattr(rg, f).cpu(), getattr(rc, f)):
+            raise AssertionError(f"{arch} REDUCED: route {f} differs between card and CPU")
+    if not torch.equal(rg.slot.cpu()[rc.keep], rc.slot[rc.keep]):
+        raise AssertionError(f"{arch} REDUCED: route slots differ between card and CPU")
+    want = M.moe_apply(mp_c, cfg, x)
+    moe_err = check_close(M.moe_apply(mp_g, cfg, x.to("cuda")).cpu(), want, f"{arch} moe_apply",
+                          MOE_CARD_RTOL, MOE_CARD_RTOL * float(want.abs().max()))
+    errs = []
+    runs = []  # (params, cache): the CPU's, then the card's
+    for dev, p in (("cpu", cpu), ("cuda", gpu)):
+        c = T.init_kv_cache(cfg, 3, 40, dtype=torch.float32, device=dev)
+        c["len"] = torch.tensor([0, 17, 39], dtype=torch.int32, device=dev)
+        runs.append((p, c))
+    for t in range(3):
+        tok = torch.tensor([t, 2 * t + 1, 3 * t + 2])
+        lc, runs[0] = _decode_on(runs[0], cfg, tok)
+        lg, runs[1] = _decode_on(runs[1], cfg, tok.to("cuda"))
+        errs.append(check_close(lg.cpu(), lc, f"{arch} REDUCED decode step {t}", MOE_CARD_RTOL,
+                                MOE_CARD_RTOL * float(lc.abs().max())))
+    fd.LAUNCHES.update(saved)
+    return {"config": cfg.name, "dropped_pairs": int((~rc.keep).sum()),
+            "moe_apply_max_abs_err": moe_err, "decode_max_abs_err": errs}
+
+
+def _decode_on(pc, cfg, tok):
+    from repro_torch.models import transformer as T
+
+    params, cache = pc
+    logits, cache = T.decode_step(params, cfg, cache, tok, use_flash_kernel=True)
+    return logits, (params, cache)
+
+
+def phase_moe_serve(smi: str) -> dict:
+    """The MoE LMs served at full width and depth in bf16 (``MOE_SERVE``):
+    parameters initialised on the card, ``make_prefill`` at B = 1, S =
+    MOE_PREFILL_S with the share of (token, slot) pairs dropped at
+    capacity 1.25, ``generate`` on the kernel, long-context decode steps
+    with row 12 held to its plain version at the config's cache shape;
+    then each config's float32 check at MOE_CHECK_LAYERS layers and the
+    REDUCED configs on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import moe as M
+    from repro_torch.serve import decode as serve
+
+    out = {"phase": "moe_serve", "card": smi, "archs": {},
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    launches = 0
+    for arch, max_new, long_steps in MOE_SERVE:
+        cfg = registry.get(arch).full
+        res = {"config": cfg.name, "dtype": "bfloat16", "n_layers": cfg.n_layers,
+               "param_count": cfg.param_count(), "active_param_count": cfg.active_param_count()}
+        params, res["init"] = moe_init_on_card(cfg, torch.bfloat16, gen)
+        prompt = torch.randint(0, cfg.vocab, (1, MOE_PREFILL_S), generator=gen, device="cuda")
+        prefill_s = []
+        for _ in range(2):  # the first call pays the CUDA and cuBLAS warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fd.reset_launches()
+            t = time.perf_counter()
+            logits, kept, pairs, shares = routed(lambda: serve.make_prefill(cfg)(params, prompt))
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+        if (tuple(logits.shape) != (1, cfg.vocab) or not bool(logits.isfinite().all())
+                or len(shares) != cfg.n_layers or fd.LAUNCHES["flash_decode"]):
+            raise AssertionError(f"{arch} prefill: logits {tuple(logits.shape)}, {len(shares)} "
+                                 f"MoE layers, {fd.LAUNCHES['flash_decode']} flash launches")
+        res["prefill"] = {"B": 1, "S": MOE_PREFILL_S, "first_s": prefill_s[0], "s": prefill_s[1],
+                          "tokens_per_s": MOE_PREFILL_S / prefill_s[1],
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "capacity": M._capacity(MOE_PREFILL_S, cfg.moe),
+                          "capacity_factor": cfg.moe.capacity_factor, "pairs": pairs,
+                          "dropped": pairs - kept, "dropped_share": (pairs - kept) / pairs,
+                          "dropped_share_by_layer": shares}
+        del logits
+        res["generate"] = moe_generate(arch, params, cfg, max_new, gen)
+        res["decode_long"] = moe_decode_long(arch, params, cfg, long_steps, gen)
+        launches += res["generate"]["launches"] + res["decode_long"]["launches"]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["float32_check"] = moe_f32_check(arch, cfg, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["card_vs_cpu"] = moe_card_vs_cpu(arch)
+        out["archs"][arch] = res
+    out["launches"] = launches
+    emit(out)
+    return out
+
+
+GNN_SCHNET_STEPS = 6
+GNN_GC_TRAIN_STEPS = 3
+GNN_GC_TRAIN_REFINEMENT = 5  # cut from 6: no remat in the reference, ~118 GB of activations
+
+
+def gnn_steps(step_fn, state, batch_fn, n: int) -> tuple:
+    """``n`` timed steps; (state, history of float metrics, step seconds)."""
+    times, hist = [], []
+    step = timed_steps(step_fn, times)
+    for i in range(n):
+        state, m = step(state, batch_fn(i))
+        hist.append({k: float(v) for k, v in m.items()})
+    if not all(np.isfinite(h[k]) for h in hist for k in h):
+        raise AssertionError(f"gnn_molecule: metrics not finite: {hist}")
+    return state, hist, times
+
+
+def molecule_graph(mb, device):
+    """A ``molecule_batch`` as a GraphBatch with distances and graph ids."""
+    import torch
+
+    from repro_torch.models.gnn import common
+
+    edges = np.stack([mb["src"], mb["dst"]], 1)
+    g = common.batch_from_edges(mb["x"].shape[0], edges, mb["x"], edge_attr=mb["dist"][:, None],
+                                device=device)
+    return g._replace(graph_ids=torch.from_numpy(mb["graph_ids"]).to(device))
+
+
+def gnn_card_vs_cpu(name: str, params, loss, batch_fn) -> dict:
+    """Two steps of a REDUCED model on the card and on the CPU from the same
+    parameters and batches (``batch_fn(step, device)``): loss, grad norm
+    and every leaf of the state (TRAIN_LOSS_RTOL, TRAIN_STATE_RTOL)."""
+    from repro_torch import _tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    step_fn = TS.make_train_step(loss, adamw.wsd_schedule(1, 10, 2, 3e-3))
+    cpu = TS.init_state(params)
+    gpu = TS.init_state(_tree.tree_map(lambda p: p.to("cuda"), params))
+    worst = 0.0
+    for step in range(2):
+        cpu, cm = step_fn(cpu, batch_fn(step, "cpu"))
+        gpu, gm = step_fn(gpu, batch_fn(step, "cuda"))
+        check_close(gm["loss"].cpu(), cm["loss"], f"{name} step {step} loss", TRAIN_LOSS_RTOL,
+                    TRAIN_LOSS_RTOL * abs(float(cm["loss"])))
+        check_close(gm["grad_norm"].cpu(), cm["grad_norm"], f"{name} step {step} grad norm",
+                    TRAIN_STATE_RTOL, TRAIN_STATE_RTOL * abs(float(cm["grad_norm"])))
+        for (path, g), c in zip(_tree.flatten_with_paths(gpu), _tree.leaves(cpu)):
+            if c.is_floating_point():
+                scale = max(float(c.abs().max()), 1e-30)
+                worst = max(worst, check_close(g.cpu(), c, f"{name} step {step} {path}",
+                                               TRAIN_STATE_RTOL, TRAIN_STATE_RTOL * scale) / scale)
+    return {"steps": 2, "state_max_rel_err": worst}
+
+
+def phase_gnn_molecule(smi: str) -> dict:
+    """SchNet FULL training steps on the ``molecule`` shape, GraphCast FULL's
+    forward on its refinement-6 multimesh and its training steps at full
+    width and depth on refinement GNN_GC_TRAIN_REFINEMENT, and both REDUCED
+    models on the card against the CPU.  No hand kernel is on this path
+    (the reference's ``aggregate`` is ``segment_sum``, here ``index_add_``):
+    the phase asserts that none launched."""
+    import torch
+
+    from repro_torch.configs import graphcast as gc_cfg
+    from repro_torch.configs import schnet as sch_cfg
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data.pipeline import molecule_batch
+    from repro_torch.models.gnn import common
+    from repro_torch.models.gnn import graphcast as gcast
+    from repro_torch.models.gnn import schnet
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("gnn_molecule: TF32 is on; the models run in full float32")
+    launches = all_launches()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    out = {"phase": "gnn_molecule", "card": smi, "dtype": "float32"}
+
+    shape = GNN_SHAPES["molecule"]
+    B, atoms, edges, d_feat = shape["batch"], shape["n_nodes"], shape["n_edges"], shape["d_feat"]
+    cfg = sch_cfg.FULL
+    params = schnet.init(gen, d_feat, cfg.d_hidden, cfg.n_layers, cfg.n_rbf, cfg.n_classes,
+                         device="cuda")
+
+    def mol_batch(step, device="cuda"):
+        mb = molecule_batch(SEED, step, B, atoms, edges, d_feat)
+        return {"graph": molecule_graph(mb, device),
+                "targets": torch.from_numpy(mb["targets"]).to(device)}
+
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = TS.make_train_step(TS.schnet_loss(B), adamw.wsd_schedule(1, 100, 10, 1e-3))
+    _, hist, times = gnn_steps(step_fn, TS.init_state(params), mol_batch, GNN_SCHNET_STEPS)
+    s = steady(times)
+    out["schnet"] = {"config": cfg.name, "molecules": B, "atoms": B * atoms, "edges": B * edges,
+                     "steps": hist, "step_s": times, "s_per_step": s,
+                     "molecules_per_s": B / s, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    gcfg = gc_cfg.FULL
+    t = time.perf_counter()
+    mesh = gcast.build_multimesh(gcfg.mesh_refinement)
+    mesh_s = time.perf_counter() - t
+    n = int(mesh.max()) + 1
+    x = torch.randn((n, gcfg.n_vars), generator=gen, device="cuda")
+    graph = common.batch_from_edges(n, mesh, x.cpu().numpy(), device="cuda")
+    gparams = gcast.init(gen, gcfg.n_vars, gcfg.d_hidden, gcfg.n_layers, gcfg.n_classes,
+                         device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_s = []
+    with torch.no_grad():
+        for _ in range(2):  # the first pays cuBLAS's warm-up
+            t = time.perf_counter()
+            pred = gcast.forward(gparams, graph)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t)
+    if tuple(pred.shape) != (n, gcfg.n_classes) or not bool(pred.isfinite().all()):
+        raise AssertionError(f"graphcast forward: {tuple(pred.shape)} not finite")
+    out["graphcast_forward"] = {"config": gcfg.name, "refinement": gcfg.mesh_refinement,
+                                "nodes": n, "edges": int(mesh.shape[0]), "mesh_build_s": mesh_s,
+                                "forward_s": fwd_s, "ms": 1e3 * fwd_s[-1],
+                                "peak_bytes": torch.cuda.max_memory_allocated()}
+    del pred, graph, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = gcast.build_multimesh(GNN_GC_TRAIN_REFINEMENT)
+    n = int(mesh.max()) + 1
+    x = torch.randn((n, gcfg.n_vars), generator=gen, device="cuda")
+    graph = common.batch_from_edges(n, mesh, x.cpu().numpy(), device="cuda")
+
+    def gc_batch(step, device="cuda"):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 50 + step)
+        return {"graph": graph, "targets": torch.randn((n, gcfg.n_classes), generator=g,
+                                                       device="cuda")}
+
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = TS.make_train_step(TS.graphcast_loss(), adamw.wsd_schedule(1, 100, 10, 1e-3))
+    _, hist, times = gnn_steps(step_fn, TS.init_state(gparams), gc_batch, GNN_GC_TRAIN_STEPS)
+    out["graphcast_train"] = {"config": gcfg.name, "refinement": GNN_GC_TRAIN_REFINEMENT,
+                              "nodes": n, "edges": int(mesh.shape[0]), "steps": hist,
+                              "step_s": times, "s_per_step": steady(times),
+                              "peak_bytes": torch.cuda.max_memory_allocated()}
+    del gparams, graph, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rs = sch_cfg.REDUCED
+    cpu_gen = torch.Generator().manual_seed(SEED + 41)
+    sp = schnet.init(cpu_gen, d_feat, rs.d_hidden, rs.n_layers, rs.n_rbf, rs.n_classes,
+                     device="cpu")
+    small = 8
+
+    def small_mols(step, device):
+        mb = molecule_batch(SEED + 1, step, small, atoms, edges, d_feat)
+        return {"graph": molecule_graph(mb, device),
+                "targets": torch.from_numpy(mb["targets"]).to(device)}
+
+    rg = gc_cfg.REDUCED
+    mesh = gcast.build_multimesh(rg.mesh_refinement)
+    n = int(mesh.max()) + 1
+    xr = np.random.default_rng(SEED + 42).standard_normal((n, rg.n_vars)).astype(np.float32)
+    gp = gcast.init(cpu_gen, rg.n_vars, rg.d_hidden, rg.n_layers, rg.n_classes, device="cpu")
+
+    def small_mesh(step, device):
+        t = np.random.default_rng(SEED + 60 + step).standard_normal((n, rg.n_classes))
+        return {"graph": common.batch_from_edges(n, mesh, xr, device=device),
+                "targets": torch.from_numpy(t.astype(np.float32)).to(device)}
+
+    out["card_vs_cpu"] = {"schnet": gnn_card_vs_cpu("schnet REDUCED", sp, TS.schnet_loss(small),
+                                                    small_mols),
+                          "graphcast": gnn_card_vs_cpu("graphcast REDUCED", gp,
+                                                       TS.graphcast_loss(), small_mesh)}
+    out["kernel_launches"] = all_launches() - launches
+    if out["kernel_launches"]:
+        raise AssertionError(f"gnn_molecule: {out['kernel_launches']} hand-kernel launches on a "
+                             "path that has none")
+    emit(out)
+    return out
+
+
 def sharded_row(cases, name: str) -> dict | None:
     """A kernel row's numbers at the sharded path's default launch shape
     (per shard, D = 1)."""
@@ -3679,6 +4254,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run("train", phase_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = run("moe_serve", phase_moe_serve, smi)
+    gc.collect()  # the MoE weights leave the card here
+    torch.cuda.empty_cache()
+    run("gnn_molecule", phase_gnn_molecule, smi)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     emit({"autotune_by_phase": {k: v for k, v in tuning.items() if v["consults"]},
           "autotune_total": tune_totals()})
@@ -3798,7 +4379,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:73",
         "launches": (long["launches"]["flash_decode"] + d32k["launches"]["flash_decode"]
-                     + lm_serve["launches"]),
+                     + lm_serve["launches"] + moe["launches"]),
+        "moe_launches": moe["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -3806,10 +4388,14 @@ def main() -> int:
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
         "pipelined_ms": k["pipelined_ms"],
-        "route": k["route"],
+        "flash_route": k["route"],
         "workspace_bytes": k["workspace_bytes"],
         "decode_32k": {key: d32k["kernel"][key]
                        for key in ("ms", "pipelined_ms", "bound_ms", "library_ms", "route")},
+        **{arch: {key: r["decode_long"]["kernel"][key]
+                  for key in ("shape", "max_abs_err", "ms", "pipelined_ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms", "route")}
+           for arch, r in moe["archs"].items()},
     })
     emit({"autotune_table": json.loads(TUNE_TABLE.read_text())})
     print(smi, flush=True)

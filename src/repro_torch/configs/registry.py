@@ -1,9 +1,10 @@
-"""Architecture registry, the dense-LM, GNN, recsys and stream parts:
-``LM_SHAPES``, ``GNNConfig``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
+"""Architecture registry: the 10 assigned archs and the paper's own
+config, ``LM_SHAPES``, ``GNNConfig``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
 ``DCNConfig``, ``STREAM_SHAPES``, ``StreamConfig``, ``ArchSpec`` and
-``get`` over the archs the port has.
+``get``.
 
-Counterpart of ``repro/configs/registry.py:19-99`` and ``:111-115``.
+Counterpart of ``repro/configs/registry.py:19-115`` (``all_cells``, the
+dry-run's cell list, waits for the dry-run tooling, ROADMAP item 14).
 ``aspen-stream`` is the paper's own configuration.  Each config module
 defines FULL (the assigned numbers), REDUCED (smoke scale) and the shape
 set of its family.  The LM configs are ``models.transformer.LMConfig``s.
@@ -63,16 +64,17 @@ class ArchSpec:
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    """The reference's GNN config without the SchNet and GraphCast
-    fields (``n_rbf``, ``cutoff``, ``mesh_refinement``, ``n_vars``): they
-    come with those models."""
-
     name: str
-    kind: str  # gcn | graphsage
+    kind: str  # gcn | graphsage | schnet | graphcast
     n_layers: int
     d_hidden: int
     aggregator: str = "mean"
+    # arch-specific extras
     sample_sizes: Tuple[int, ...] = ()
+    n_rbf: int = 0
+    cutoff: float = 0.0
+    mesh_refinement: int = 0
+    n_vars: int = 0
     n_classes: int = 64
 
 
@@ -95,14 +97,25 @@ class StreamConfig:
     seed: int = 0x9E3779B9
 
 
-ARCH_IDS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b", "graphsage-reddit", "gcn-cora",
-            "dcn-v2", "aspen-stream"]
+ARCH_IDS = [
+    "smollm-360m",
+    "qwen2.5-3b",
+    "starcoder2-7b",
+    "qwen3-moe-30b-a3b",
+    "deepseek-moe-16b",
+    "graphsage-reddit",
+    "gcn-cora",
+    "schnet",
+    "graphcast",
+    "dcn-v2",
+    "aspen-stream",  # the paper's own configuration (extra, not a cell)
+]
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULE_OF:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.SPEC

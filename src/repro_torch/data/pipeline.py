@@ -1,8 +1,7 @@
-"""Data pipelines: the token and recsys batch makers, the neighbour
-sampler and the power-law stand-in graph.
+"""Data pipelines: the token, recsys and molecule batch makers, the
+neighbour sampler and the power-law stand-in graph.
 
-Counterpart of ``repro/data/pipeline.py:17-39`` and ``:71-123``
-(``molecule_batch`` comes with SchNet, ROADMAP item 14).  Every batch is
+Counterpart of ``repro/data/pipeline.py``.  Every batch is
 a pure function of (seed, step) — the fault-tolerance contract: after a
 restore at step k the pipeline re-produces exactly the batch it would
 have produced, with no stateful iterator to checkpoint.  The batch
@@ -51,6 +50,33 @@ def recsys_batch(seed: int, step: int, batch: int, n_dense: int = 13,
         "dense": rng.standard_normal((batch, n_dense)).astype(np.float32),
         "sparse_ids": rng.integers(0, vocab, size=(batch, n_sparse)),
         "labels": (rng.random(batch) < 0.25).astype(np.float32),
+    }
+
+
+def molecule_batch(seed: int, step: int, n_mols: int, atoms_per_mol: int = 30,
+                   edges_per_mol: int = 64, d_feat: int = 16) -> Dict:
+    """Batched small molecular graphs with distances (the SchNet regime):
+    ``x`` (N, d_feat) float32, int64 ``src`` / ``dst`` within each
+    molecule's atoms, float32 ``dist`` in [0, 10), int64 ``graph_ids``,
+    float32 ``targets`` (n_mols,) and ``n_mols``."""
+    rng = np.random.default_rng(seed * 7919 + step)
+    N = n_mols * atoms_per_mol
+    E = n_mols * edges_per_mol
+    src = np.zeros(E, dtype=np.int64)
+    dst = np.zeros(E, dtype=np.int64)
+    for m in range(n_mols):
+        base = m * atoms_per_mol
+        s = rng.integers(0, atoms_per_mol, edges_per_mol) + base
+        d = rng.integers(0, atoms_per_mol, edges_per_mol) + base
+        src[m * edges_per_mol:(m + 1) * edges_per_mol] = s
+        dst[m * edges_per_mol:(m + 1) * edges_per_mol] = d
+    dists = rng.random(E).astype(np.float32) * 10.0
+    x = rng.standard_normal((N, d_feat)).astype(np.float32)
+    graph_ids = np.repeat(np.arange(n_mols), atoms_per_mol)
+    targets = rng.standard_normal(n_mols).astype(np.float32)
+    return {
+        "x": x, "src": src, "dst": dst, "dist": dists,
+        "graph_ids": graph_ids, "targets": targets, "n_mols": n_mols,
     }
 
 

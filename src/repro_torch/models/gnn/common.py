@@ -26,15 +26,15 @@ from ..layers import params_from_numpy  # noqa: F401  (re-exported)
 
 
 class GraphBatch(NamedTuple):
-    """A graph in padded edge-list form.  The reference's ``edge_attr``
-    and ``graph_ids`` (SchNet distances, batched small graphs) come with
-    the models that read them."""
+    """A (possibly batched) graph in padded edge-list form."""
 
     x: torch.Tensor  # (N, d_feat) node features
     src: torch.Tensor  # (E,) int32 edge sources (padding -> N-1, masked)
     dst: torch.Tensor  # (E,) int32 edge destinations
     edge_mask: torch.Tensor  # (E,) bool
     node_mask: torch.Tensor  # (N,) bool
+    edge_attr: Optional[torch.Tensor] = None  # (E, d_edge) e.g. distances
+    graph_ids: Optional[torch.Tensor] = None  # (N,) for batched small graphs
 
     @property
     def n_nodes(self) -> int:
@@ -101,10 +101,12 @@ def batch_from_edges(
     edges: np.ndarray,
     x: np.ndarray,
     edge_capacity: Optional[int] = None,
+    edge_attr: Optional[np.ndarray] = None,
     device=None,
 ) -> GraphBatch:
     """GraphBatch from a host (k, 2) edge array, padded to
-    ``edge_capacity`` with masked edges (n-1, n-1)."""
+    ``edge_capacity`` with masked edges (n-1, n-1); ``edge_attr`` (k, ...)
+    becomes float32 with zero rows for the padding."""
     dev = resolve(device)
     e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     E = e.shape[0]
@@ -114,12 +116,18 @@ def batch_from_edges(
     src[:E], dst[:E] = e[:, 0], e[:, 1]
     mask = np.zeros(cap, dtype=bool)
     mask[:E] = True
+    ea = None
+    if edge_attr is not None:
+        ea_np = np.zeros((cap,) + edge_attr.shape[1:], dtype=np.float32)
+        ea_np[:E] = edge_attr
+        ea = torch.from_numpy(ea_np).to(dev)
     return GraphBatch(
         x=torch.as_tensor(np.asarray(x, np.float32)).to(dev),
         src=torch.from_numpy(src).to(dev),
         dst=torch.from_numpy(dst).to(dev),
         edge_mask=torch.from_numpy(mask).to(dev),
         node_mask=torch.ones((n,), dtype=torch.bool, device=dev),
+        edge_attr=ea,
     )
 
 
@@ -139,15 +147,22 @@ def batch_from_flat_graph(g: fg.FlatGraph, x: torch.Tensor) -> GraphBatch:
     )
 
 
-def random_batch(gen: torch.Generator, n: int, e: int, d_feat: int, device=None) -> GraphBatch:
+def random_batch(gen: torch.Generator, n: int, e: int, d_feat: int, batched: int = 0,
+                 device=None) -> GraphBatch:
     """Synthetic graph for smoke tests and benchmarks, drawn from ``gen``
-    (on the generator's device) and placed on ``device``."""
+    (on the generator's device) and placed on ``device``.  With
+    ``batched``, node i belongs to graph ``i // (n // batched)``, as in the
+    reference (int64 ``graph_ids``)."""
     dev = resolve(device)
     src = torch.randint(0, n, (e,), generator=gen, device=gen.device, dtype=torch.int32)
     dst = torch.randint(0, n, (e,), generator=gen, device=gen.device, dtype=torch.int32)
     x = torch.randn((n, d_feat), generator=gen, device=gen.device, dtype=torch.float32)
+    gid = None
+    if batched:
+        gid = torch.arange(n, device=dev) // (n // batched)
     return GraphBatch(
         x=x.to(dev), src=src.to(dev), dst=dst.to(dev),
         edge_mask=torch.ones((e,), dtype=torch.bool, device=dev),
         node_mask=torch.ones((n,), dtype=torch.bool, device=dev),
+        graph_ids=gid,
     )

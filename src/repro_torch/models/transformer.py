@@ -1,6 +1,6 @@
-"""Dense decoder-only LM (llama / qwen / starcoder families).
+"""Decoder-only LM (llama / qwen / starcoder, and the MoE families).
 
-Counterpart of the dense part of ``repro/models/transformer.py``.  Layer
+Counterpart of ``repro/models/transformer.py``.  Layer
 parameters are stacked with a leading ``n_layers`` axis, as the
 reference's vmapped init leaves them, and the layers run as a Python
 loop over that axis (the reference's ``lax.scan``).  Covers the training
@@ -20,9 +20,18 @@ lays such a product out as) and recomputes everything else.  At one
 sequence and one kv head the attention products are one-batch too and
 are kept as well.  Gradients are the same under all three.
 
+A config with ``moe`` set (``MoEFields``) replaces each layer's MLP by
+``models/moe.py``'s block.  ``moe_impl="einsum"`` is that block;
+``"shardmap"``, the reference's explicit collective schedule over a
+(data, model) mesh, needs ranks and raises (ROADMAP item 16).
+
+``init_params`` allocates each stacked leaf once, ``[n_layers, ...]`` in
+its dtype, and fills it layer by layer: its peak is the stack plus one
+layer (qwen3-moe-30b-a3b's 59.5 GB of bf16 weights fit one 80 GB card
+only so).
+
 Left out: ``unroll_layers`` only steered XLA's cost accounting of the
-scan; ``moe_impl`` and the MoE layers (``MoEFields``, a config with
-``moe`` set) come with ROADMAP item 14 and raise until then.
+scan.
 """
 from __future__ import annotations
 
@@ -35,16 +44,8 @@ from torch.utils import checkpoint as ckpt
 
 from .._device import resolve
 from . import layers as L
+from . import moe as M
 from .layers import params_from_numpy  # noqa: F401  (re-exported)
-
-_MOE_TODO = "MoE layers are ROADMAP item 14; the port has the dense LMs only"
-
-
-class MoEFields:
-    """Placeholder for the reference's MoE config: MoE is ROADMAP item 14."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_MOE_TODO)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +62,19 @@ class LMConfig:
     qkv_bias: bool = False
     mlp_kind: str = "swiglu"  # swiglu (3-matrix) | gelu (2-matrix)
     attn_impl: str = "chunked"  # chunked | tri (triangular block schedule)
+    moe_impl: str = "einsum"  # einsum; shardmap (explicit collectives) needs ranks
     norm: str = "rmsnorm"
     tie_embeddings: bool = True
-    moe: Optional[Any] = None  # must stay None: MoE is ROADMAP item 14
+    # MoE fields (None => dense)
+    moe: Optional["MoEFields"] = None
     remat: str = "none"  # none | full | dots (activation checkpoint policy)
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(_MOE_TODO)
+        if self.moe_impl == "shardmap":
+            raise NotImplementedError(
+                "moe_impl='shardmap' is the reference's collective schedule over a "
+                "(data, model) mesh: it needs ranks across GPUs, ROADMAP item 16; on one "
+                "card use 'einsum'")
 
     @property
     def head_dim(self) -> int:
@@ -88,15 +94,38 @@ class LMConfig:
 
     def param_count(self) -> int:
         """Exact parameter count."""
+        return self._count(active=False)
+
+    def active_param_count(self) -> int:
+        """Parameters used per token (MoE: the top-k and shared experts only)."""
+        return self._count(active=True)
+
+    def _count(self, active: bool) -> int:
         d, h, kv, dh, ff = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim, self.d_ff
         attn = d * (h + 2 * kv) * dh + h * dh * d
-        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * ff
+        if self.moe is None:
+            mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * ff
+        else:
+            m = self.moe
+            routed = m.top_k if active else m.n_experts
+            mlp = routed * 3 * d * ff + m.n_shared * 3 * d * m.shared_d_ff + d * m.n_experts
         per_layer = attn + mlp + 2 * d
         return self.n_layers * per_layer + self.vocab * d + d
 
-    def active_param_count(self) -> int:
-        """Parameters used per token: all of them in a dense model."""
-        return self.param_count()
+
+@dataclasses.dataclass(frozen=True)
+class MoEFields:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # pins the reference's dispatch and combine shardings (GSPMD); one
+    # card has nothing to pin, so it changes nothing here
+    shard_dispatch: bool = False
+    # hierarchical dispatch: each expert's capacity slots partitioned by
+    # source data shard (slot = e*C + shard*C_local + local_rank)
+    dispatch_shards: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -105,34 +134,45 @@ class LMConfig:
 
 
 def _layer_init(gen: torch.Generator, cfg: LMConfig, dtype, dev) -> Dict[str, Any]:
+    """One layer's tree, drawn from ``gen``: attention, then the MLP."""
     norm = L.rmsnorm_init if cfg.norm == "rmsnorm" else L.layernorm_init
-    mlp = L.gelu_mlp_init if cfg.mlp_kind == "gelu" else L.swiglu_init
-    return {
-        "attn": L.attention_init(gen, cfg.attn_config, dtype, dev),
-        "ln1": norm(cfg.d_model, device=dev),
-        "ln2": norm(cfg.d_model, device=dev),
-        "mlp": mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev),
-    }
+    attn = L.attention_init(gen, cfg.attn_config, dtype, dev)
+    if cfg.moe is not None:
+        mlp = M.moe_init(gen, cfg, dtype, dev)
+    else:
+        mlp_init = L.gelu_mlp_init if cfg.mlp_kind == "gelu" else L.swiglu_init
+        mlp = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, dev)
+    return {"attn": attn, "ln1": norm(cfg.d_model, device=dev),
+            "ln2": norm(cfg.d_model, device=dev), "mlp": mlp}
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_layer(stack, tree, i: int, n_layers: int):
+    """Copy layer ``i``'s ``tree`` into ``stack``, whose leaves are
+    allocated as ``[n_layers, ...]`` from layer 0's when ``stack`` is None;
+    returns the stack."""
+    if isinstance(tree, dict):
+        return {k: _stack_layer(None if stack is None else stack[k], v, i, n_layers)
+                for k, v in tree.items()}
+    if stack is None:
+        stack = tree.new_empty((n_layers,) + tuple(tree.shape))
+    stack[i].copy_(tree)
+    return stack
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig, dtype=torch.bfloat16,
                 device=None) -> Dict[str, Any]:
     """Random parameters drawn from ``gen``, every layer leaf stacked with
     a leading ``n_layers`` axis (the reference vmaps its layer init); norms
-    in float32, the rest in ``dtype``."""
+    and the MoE router in float32, the rest in ``dtype``.  Each stacked
+    leaf is allocated once and filled layer by layer, the draws in layer
+    order."""
     dev = resolve(device)
     norm = L.rmsnorm_init if cfg.norm == "rmsnorm" else L.layernorm_init
-    return {
-        "embed": L.embedding_init(gen, cfg.vocab, cfg.d_model, dtype, dev),
-        "layers": _stack([_layer_init(gen, cfg, dtype, dev) for _ in range(cfg.n_layers)]),
-        "ln_f": norm(cfg.d_model, device=dev),
-    }
+    embed = L.embedding_init(gen, cfg.vocab, cfg.d_model, dtype, dev)
+    layers = None
+    for i in range(cfg.n_layers):
+        layers = _stack_layer(layers, _layer_init(gen, cfg, dtype, dev), i, cfg.n_layers)
+    return {"embed": embed, "layers": layers, "ln_f": norm(cfg.d_model, device=dev)}
 
 
 def _layer(tree, i: int):
@@ -152,6 +192,9 @@ def _norm(cfg: LMConfig, p, x):
 
 
 def _mlp(cfg: LMConfig, p, x):
+    """The layer's MLP: the MoE block when the config has ``moe``."""
+    if cfg.moe is not None:
+        return M.moe_apply(p, cfg, x)
     return L.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else L.swiglu(p, x)
 
 

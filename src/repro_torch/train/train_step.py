@@ -8,8 +8,7 @@ builds the new state under ``no_grad`` (the reference's pure function,
 jitted).  ``_accumulate`` splits axis 0 of every batch tensor into
 ``n_micro`` slices and sums loss and float32 gradients over them in
 order, where the reference scans, then scales both by ``1 / n_micro``.
-One loss builder per architecture family; SchNet and GraphCast come
-with those models (ROADMAP item 14) and raise until then.
+One loss adapter per architecture family.
 """
 from __future__ import annotations
 
@@ -99,9 +98,6 @@ def make_train_step(
 
 # -- per-family batch adapters ------------------------------------------------
 
-_MOLECULE_TODO = "SchNet and GraphCast are ROADMAP item 14; the port has no {} model yet"
-
-
 def lm_loss(cfg):
     from ..models import transformer as T
 
@@ -143,11 +139,21 @@ def sage_sampled_loss():
 
 
 def schnet_loss(n_graphs: int):
-    raise NotImplementedError(_MOLECULE_TODO.format("SchNet"))
+    from ..models.gnn import schnet
+
+    def f(params, batch):
+        return schnet.loss_fn(params, batch["graph"], batch["targets"], n_graphs)
+
+    return f
 
 
 def graphcast_loss():
-    raise NotImplementedError(_MOLECULE_TODO.format("GraphCast"))
+    from ..models.gnn import graphcast
+
+    def f(params, batch):
+        return graphcast.loss_fn(params, batch["graph"], batch["targets"])
+
+    return f
 
 
 def dcn_loss():

@@ -20,8 +20,10 @@ import pytest
 import torch
 
 from repro.configs import gcn_cora as jgcn_cfg
+from repro.configs import graphcast as jgc_cfg
 from repro.configs import graphsage_reddit as jsage_cfg
 from repro.configs import registry as jreg
+from repro.configs import schnet as jsch_cfg
 from repro.core import flat_graph as jfg
 from repro.data import pipeline as jpipe
 from repro.models import layers as jL
@@ -29,8 +31,10 @@ from repro.models.gnn import common as jcommon
 from repro.models.gnn import gcn as jgcn
 from repro.models.gnn import graphsage as jsage
 from repro_torch.configs import gcn_cora as tgcn_cfg
+from repro_torch.configs import graphcast as tgc_cfg
 from repro_torch.configs import graphsage_reddit as tsage_cfg
 from repro_torch.configs import registry as treg
+from repro_torch.configs import schnet as tsch_cfg
 from repro_torch.core import flat_graph as tfg
 from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import segment_reduce as sr
@@ -65,20 +69,18 @@ def edges_of(offsets, nbrs):
 
 def test_configs_match_reference():
     assert treg.GNN_SHAPES == jreg.GNN_SHAPES
-    # the port's GNNConfig lacks the SchNet / GraphCast fields, which these
-    # two configs leave at their defaults in the reference
-    unported = {"n_rbf", "cutoff", "mesh_refinement", "n_vars"}
-    for tm, jm in ((tsage_cfg, jsage_cfg), (tgcn_cfg, jgcn_cfg)):
+    for tm, jm in ((tsage_cfg, jsage_cfg), (tgcn_cfg, jgcn_cfg), (tsch_cfg, jsch_cfg),
+                   (tgc_cfg, jgc_cfg)):
         for which in ("FULL", "REDUCED"):
             t, j = getattr(tm, which), getattr(jm, which)
             assert [(f, getattr(t, f)) for f in t.__dataclass_fields__] == \
-                [(f, getattr(j, f)) for f in j.__dataclass_fields__ if f not in unported]
-            assert all(getattr(j, f) == j.__dataclass_fields__[f].default for f in unported)
+                [(f, getattr(j, f)) for f in j.__dataclass_fields__]
+    assert treg.ARCH_IDS == jreg.ARCH_IDS
     for arch in treg.ARCH_IDS:
         spec, ref = treg.get(arch), jreg.get(arch)
         assert (spec.arch_id, spec.family, spec.shapes) == (ref.arch_id, ref.family, ref.shapes)
-    with pytest.raises(KeyError):  # an arch the port does not have yet
-        treg.get("qwen3-moe-30b-a3b")
+    with pytest.raises(KeyError):
+        treg.get("no-such-arch")
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -45,6 +45,8 @@ def args_for(arch, steps=5, batch=4, seq=16, device=CPU, **extra):
 
 
 @pytest.mark.parametrize("arch,make", [("smollm-360m", "make_lm_run"),
+                                       ("qwen3-moe-30b-a3b", "make_lm_run"),
+                                       ("deepseek-moe-16b", "make_lm_run"),
                                        ("dcn-v2", "make_dcn_run")])
 def test_runs_match_reference_over_five_steps(arch, make):
     args = args_for(arch, batch=8 if arch == "dcn-v2" else 4)
@@ -146,9 +148,10 @@ def test_cli_runs_in_a_subprocess(tmp_path):
     assert sorted(os.listdir(tmp_path / "ck")) == ["step_000000002"]
 
 
-def test_gnn_family_exits_with_the_reference_message():
+@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "graphcast"])
+def test_gnn_family_exits_with_the_reference_message(arch):
     with pytest.raises(SystemExit, match="use examples/train_gnn.py for the GNN family"):
-        ttrain.main(["--arch", "gcn-cora", "--reduced", "--device", CPU])
+        ttrain.main(["--arch", arch, "--reduced", "--device", CPU])
 
 
 def test_launcher_defaults_to_cuda(monkeypatch):

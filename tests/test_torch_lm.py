@@ -14,13 +14,17 @@ Tolerance, everywhere in float32: rtol 1e-5, atol 1e-5 * max|reference|
 (float32 sums and products in another order).  Greedy tokens are
 compared exactly.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import deepseek_moe_16b as jdeep
 from repro.configs import qwen2_5_3b as jqwen
+from repro.configs import qwen3_moe_30b_a3b as jqmoe
 from repro.configs import registry as jreg
 from repro.configs import smollm_360m as jsmol
 from repro.configs import starcoder2_7b as jstar
@@ -28,7 +32,9 @@ from repro.models import layers as jL
 from repro.models import transformer as jT
 from repro.models.gnn import graphsage as jsage
 from repro.serve import decode as jserve
+from repro_torch.configs import deepseek_moe_16b as tdeep
 from repro_torch.configs import qwen2_5_3b as tqwen
+from repro_torch.configs import qwen3_moe_30b_a3b as tqmoe
 from repro_torch.configs import registry as treg
 from repro_torch.configs import smollm_360m as tsmol
 from repro_torch.configs import starcoder2_7b as tstar
@@ -40,7 +46,8 @@ from repro_torch.models.gnn import common as tcommon
 from repro_torch.serve import decode as tserve
 
 CPU = "cpu"
-LM_ARCHS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b"]
+DENSE_ARCHS = ["smollm-360m", "qwen2.5-3b", "starcoder2-7b"]
+LM_ARCHS = DENSE_ARCHS + ["qwen3-moe-30b-a3b", "deepseek-moe-16b"]
 
 
 def assert_close(got, want, what=""):
@@ -83,30 +90,60 @@ def no_kernel(monkeypatch):
 # configs and parameters
 # ---------------------------------------------------------------------------
 
-DROPPED = {"moe_impl", "unroll_layers"}
+DROPPED = {"unroll_layers"}
+
+
+def config_items(c):
+    """A config's fields in order, the MoE fields as their own items."""
+    return [(f, config_items(getattr(c, f)) if f == "moe" and c.moe is not None
+             else getattr(c, f)) for f in c.__dataclass_fields__ if f not in DROPPED]
 
 
 def test_configs_match_reference():
     assert treg.LM_SHAPES == jreg.LM_SHAPES
-    for tm, jm in ((tsmol, jsmol), (tqwen, jqwen), (tstar, jstar)):
+    for tm, jm in ((tsmol, jsmol), (tqwen, jqwen), (tstar, jstar), (tqmoe, jqmoe),
+                   (tdeep, jdeep)):
         for which in ("FULL", "REDUCED"):
             t, j = getattr(tm, which), getattr(jm, which)
-            assert [(f, getattr(t, f)) for f in t.__dataclass_fields__] == \
-                [(f, getattr(j, f)) for f in j.__dataclass_fields__ if f not in DROPPED]
+            assert config_items(t) == config_items(j)
             assert all(getattr(j, f) == j.__dataclass_fields__[f].default for f in DROPPED)
             assert t.head_dim == j.head_dim and t.attn_config.__dict__ == j.attn_config.__dict__
-            assert t.param_count() == j.param_count() == t.active_param_count()
+            assert t.param_count() == j.param_count()
+            assert t.active_param_count() == j.active_param_count()
+            assert (t.active_param_count() == t.param_count()) == (t.moe is None)
     for arch in LM_ARCHS:
         spec, ref = treg.get(arch), jreg.get(arch)
         assert (spec.arch_id, spec.family, spec.shapes) == (ref.arch_id, ref.family, ref.shapes)
 
 
-def test_moe_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tT.MoEFields(n_experts=8, top_k=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tT.LMConfig(name="m", n_layers=1, d_model=8, n_heads=2, n_kv_heads=1, d_ff=8,
-                    vocab=16, moe=object())
+def _stacked_init_before(gen, cfg):
+    """The dense init as it was: every layer drawn into its own tree, the
+    trees then stacked with ``torch.stack`` (two copies of the stack)."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    dev = torch.device(CPU)
+    return {
+        "embed": tL.embedding_init(gen, cfg.vocab, cfg.d_model, torch.bfloat16, dev),
+        "layers": stack([tT._layer_init(gen, cfg, torch.bfloat16, dev)
+                         for _ in range(cfg.n_layers)]),
+        "ln_f": tL.rmsnorm_init(cfg.d_model, device=dev) if cfg.norm == "rmsnorm"
+        else tL.layernorm_init(cfg.d_model, device=dev),
+    }
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_init_params_draws_the_values_it_drew_before(arch):
+    """Filling the stacked leaves layer by layer draws from the generator
+    in the order the per-layer trees did: the same values, bit for bit."""
+    cfg = dataclasses.replace(treg.get(arch).reduced, n_layers=3)
+    got = tT.init_params(torch.Generator().manual_seed(5), cfg, device=CPU)
+    want = _stacked_init_before(torch.Generator().manual_seed(5), cfg)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

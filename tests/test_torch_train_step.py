@@ -270,13 +270,6 @@ def test_n_micro_needs_a_divisible_batch():
         step(tTS.init_state({"w": torch.ones(1)}), {"x": torch.ones(3)})
 
 
-def test_schnet_and_graphcast_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tTS.schnet_loss(4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tTS.graphcast_loss()
-
-
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
