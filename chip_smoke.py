@@ -30,7 +30,8 @@ checks every result.  One JSON object per phase goes to stdout:
           ``AspenStream(compressed=True)`` at 2^18 vertices on 8 disjoint
           rMAT communities of 2^15 vertices (first showing that the stream
           phase's plain rMAT tree raises, as the reference's layout does),
-          each of the 9 publishes held against its host tree, decoded
+          two of its 9 publishes (``COMPRESSED_CHECKED_PUBLISHES``)
+          held against the host tree, decoded
           once, and the numpy engine on that decode, and both adaptive
           kernels held against their plain versions on the
           last version's own lane (D = 1 and 8);
@@ -192,6 +193,22 @@ checks every result.  One JSON object per phase goes to stdout:
           on ``build_multimesh(5)`` (refinement cut: the reference has no
           GNN remat); both REDUCED models on the card against the CPU.  No
           kernel runs here.
+  train_gnn
+          (after gnn_sampled, on its card graph) graphsage-reddit FULL
+          trained through ``launch.train_gnn``'s loop: B = 1024 at fanout
+          (15, 10), 512 edges streamed in every 10 steps, 40 steps with
+          checkpoints after steps 20 and 40; the step-40 one removed, a
+          fresh restore re-runs steps 21-40 bit for bit; s/step, seeds/s,
+          peak bytes, final accuracy; 3 REDUCED steps on the card against
+          the CPU.  No kernel runs here.
+  dryrun  (last) the dry run (``launch.dryrun``) of the reference's nine
+          representative cells at full width on the 16x16 fake mesh, in a
+          child process started after the build (``--dryrun-cells``; host
+          work beside the card's phases), one line each (per-device FLOPs, bytes, collective bytes by kind,
+          H100 roofline terms, memory model); then gcn-cora
+          full_graph_sm, dcn-v2 serve_p99 and schnet molecule run on the
+          card at 1x1 with arguments drawn from the seed, their ms and
+          peak bytes beside the 1x1 dry run's figures.
 
 The compressed layout (128-slot chunks, int8/int16 deltas, 8 escapes per
 chunk) holds only graphs whose ids have community locality: on plain
@@ -222,6 +239,7 @@ before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -242,6 +260,13 @@ TUNE_TABLE = ROOT / "build" / "autotune_table.json"
 # Stream-phase PageRank (float32, 10 rounds) against the numpy engine's
 # float64, relative to each entry.
 PR_RTOL = 1e-5
+# The compressed_stream publishes (of 9: four insert / delete pairs, then a
+# weighted insert) whose versions are held against the host: the first
+# insert and the last, weighted one, whose version holds every earlier
+# insert and delete.  Each check costs 20-35 s of host Python (a decode of
+# the lane and the numpy engine); more no longer fit the time limit beside
+# the stream phase's nine checks and the later phases.
+COMPRESSED_CHECKED_PUBLISHES = (0, 8)
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and float32 rate
 # outside the tensor cores.
@@ -1429,19 +1454,18 @@ def phase_compressed_stream(plain_stream) -> dict:
         fn(*args, **kw)
         torch.cuda.synchronize()
         publish_s.append(time.perf_counter() - t)
+        if len(publish_s) - 1 in COMPRESSED_CHECKED_PUBLISHES:
+            check_version()
 
     sr.reset_launches()
     dd.reset_launches()
     for b in range(n_batches):  # each batch: an insert publish, then a delete publish
         rows = updates[b * batch:(b + 1) * batch]
         publish(stream.insert_edges, rows[rows[:, 2] == 0, :2])
-        check_version()
         publish(stream.delete_edges, rows[rows[:, 2] == 1, :2])
-        check_version()
     wedges = updates[n_batches * batch:(n_batches + 1) * batch, :2]
     weights = rng.integers(1, 10, size=wedges.shape[0]).astype(np.float64)
     publish(stream.insert_edges, wedges, weights=weights)
-    check_version()
     launches = {**sr.LAUNCHES, **dd.LAUNCHES}
     for name in ("segment_sum_chunked_adaptive", "segment_sum_weighted_chunked_adaptive",
                  "delta_decode_chunked_adaptive"):
@@ -1459,7 +1483,7 @@ def phase_compressed_stream(plain_stream) -> dict:
     m = int(cg.m)
     out.update(
         m=m, batches=n_batches + 1, updates_per_batch=batch, publishes=len(publish_s),
-        versions_checked=len(publish_s), pagerank_max_rel_err=pr_rel[0], pagerank_rtol=PR_RTOL,
+        versions_checked=len(check_s), pagerank_max_rel_err=pr_rel[0], pagerank_rtol=PR_RTOL,
         mean_publish_s=float(np.mean(publish_s)), mean_mirror_step_s=float(np.mean(mirror_s)),
         checks_s=float(np.sum(check_s)), checks_decode_s=float(np.sum(decode_s)),
         spill_heals=stream.spill_heals, dst_bytes=resident, bytes_ideal=stats["bytes_ideal"],
@@ -2708,7 +2732,7 @@ def phase_gnn_kernels() -> None:
           "fanout_cases": n_fan, "fanout_max_abs_err": fan_err, "block_spmm_cases": spmm})
 
 
-def phase_gnn_sampled() -> dict:
+def phase_gnn_sampled() -> tuple:
     """graphsage-reddit FULL on minibatch_lg: a card-resident flat graph
     of ~114.6 M rMAT edges over Reddit's 232,965 vertices, 602 features
     per vertex, four minibatches of B = 1024 at fanout (15, 10) with 512
@@ -2831,7 +2855,7 @@ def phase_gnn_sampled() -> dict:
     }
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return out
+    return out, g, feats
 
 
 def phase_gnn_full() -> dict:
@@ -4155,6 +4179,319 @@ def phase_gnn_molecule(smi: str) -> dict:
     return out
 
 
+# train_gnn: graphsage-reddit FULL through launch.train_gnn's loop on the
+# gnn_sampled phase's card graph
+TRAIN_GNN_STEPS = 40
+TRAIN_GNN_STREAM_EVERY = 10
+TRAIN_GNN_CKPT_EVERY = 20
+TRAIN_GNN_REDUCED_STEPS = 3
+# card against CPU at the REDUCED config (float32, TF32 off)
+TRAIN_GNN_RTOL = 1e-4
+
+
+def train_gnn_args(steps: int, device: str, ckpt_dir: str = "", **kw) -> object:
+    from repro_torch.launch import train_gnn
+
+    argv = ["--steps", str(steps), "--device", device, "--ckpt-dir", ckpt_dir]
+    for k, v in kw.items():
+        argv += [f"--{k.replace('_', '-')}"] + [str(x) for x in np.atleast_1d(v)]
+    return train_gnn.parser().parse_args(argv)
+
+
+def train_gnn_card_vs_cpu() -> dict:
+    """REDUCED graphsage-reddit for 3 steps through ``train_gnn.train`` on
+    the card and on the CPU from the same parameters: the loss and grad
+    norm at each step and every parameter after."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.launch import train_gnn
+    from repro_torch.models.gnn import graphsage
+
+    cfg = graphsage_reddit.REDUCED
+    kw = dict(batch=64, n=4096, m=40_000, d_feat=32, d_hidden=cfg.d_hidden,
+              classes=cfg.n_classes, fanout=list(cfg.sample_sizes), stream_every=2)
+    params = graphsage.init(torch.Generator().manual_seed(SEED), 32, cfg.d_hidden,
+                            cfg.n_classes, device="cpu")
+    quiet = lambda line: None  # noqa: E731
+    cpu = train_gnn.train(train_gnn_args(TRAIN_GNN_REDUCED_STEPS, "cpu", **kw), params=params,
+                          log=quiet)
+    gpu = train_gnn.train(train_gnn_args(TRAIN_GNN_REDUCED_STEPS, "cuda", **kw),
+                          params=_tree.tree_map(lambda p: p.to("cuda"), params), log=quiet)
+    worst = 0.0
+    for c, g in zip(cpu["history"], gpu["history"]):
+        for k in ("loss", "grad_norm"):
+            err = abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+            if err > TRAIN_GNN_RTOL:
+                raise AssertionError(f"train_gnn card vs cpu step {c['step']} {k}: "
+                                     f"{g[k]} against {c[k]}")
+            worst = max(worst, err)
+    for g, c in zip(_tree.leaves(gpu["state"].params), _tree.leaves(cpu["state"].params)):
+        scale = max(float(c.abs().max()), 1e-30)
+        worst = max(worst, check_close(g.cpu(), c, "train_gnn card vs cpu params",
+                                       TRAIN_GNN_RTOL, TRAIN_GNN_RTOL * scale) / scale)
+    return {"config": cfg.name, "steps": TRAIN_GNN_REDUCED_STEPS, "max_rel_err": worst,
+            "loss": [[h["loss"] for h in cpu["history"]], [h["loss"] for h in gpu["history"]]]}
+
+
+def phase_train_gnn(g, feats) -> dict:
+    """graphsage-reddit FULL trained through ``launch.train_gnn``'s loop on
+    the gnn_sampled phase's card graph (~114.6 M edges, 232,965 vertices,
+    602 features): B = 1024 at fanout (15, 10), 512 edges streamed in
+    every 10 steps, 40 steps with ``ResumableRun`` checkpoints after
+    steps 20 and 40; the step-40 checkpoint removed (a run killed after
+    step 20's), a fresh restore re-runs steps 21-40 and must equal the
+    uninterrupted run bit for bit.  Labels are ``argmax(feats @ w)`` for a
+    drawn w, as in the trainer.  Then 3 REDUCED steps on the card against
+    the CPU.  No kernel runs here (``use_kernel=False`` in training and
+    evaluation, as in the reference)."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.launch import train_gnn
+    from repro_torch.models.gnn import graphsage
+
+    cfg, shape = graphsage_reddit.FULL, GNN_SHAPES["minibatch_lg"]
+    n, B, d = shape["n_nodes"], shape["batch_nodes"], shape["d_feat"]
+    launches = all_launches()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    labels = (feats @ torch.randn((d, cfg.n_classes), generator=gen, device="cuda")).argmax(1)
+    params = graphsage.init(gen, d, cfg.d_hidden, cfg.n_classes, device="cuda")
+    ckpt = ROOT / "build" / "train_gnn_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = train_gnn_args(TRAIN_GNN_STEPS, "cuda", str(ckpt), batch=B, n=n, d_feat=d,
+                          d_hidden=cfg.d_hidden, classes=cfg.n_classes,
+                          fanout=list(shape["fanout"]), stream_every=TRAIN_GNN_STREAM_EVERY,
+                          ckpt_every=TRAIN_GNN_CKPT_EVERY)
+
+    def data():  # the start graph, the trainer's insert generator afresh
+        return (train_gnn.StreamingGraph(g, feats, np.random.default_rng(SEED + 25), n,
+                                         TRAIN_GNN_STREAM_EVERY), labels)
+
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    whole = train_gnn.train(args, params=params, log=lines.append, data=data())
+    whole_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    saved = sorted(p.name for p in ckpt.iterdir())
+    if saved != ["step_000000020", "step_000000040"]:
+        raise AssertionError(f"train_gnn: checkpoints {saved}")
+    shutil.rmtree(ckpt / "step_000000040")
+    t = time.perf_counter()
+    resumed = train_gnn.train(args, params=params, log=lines.append, data=data())
+    resume_s = time.perf_counter() - t
+    if resumed["start"] != TRAIN_GNN_CKPT_EVERY:
+        raise AssertionError(f"train_gnn: resumed at {resumed['start']}")
+    for r, w in zip(resumed["history"], whole["history"][TRAIN_GNN_CKPT_EVERY:]):
+        if (r["step"], r["loss"], r["grad_norm"]) != (w["step"], w["loss"], w["grad_norm"]):
+            raise AssertionError(f"train_gnn: resumed step {r} differs from {w}")
+    for (path, a), b in zip(_tree.flatten_with_paths(resumed["state"]),
+                            _tree.leaves(whole["state"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train_gnn: resumed state {path} differs")
+    if not torch.equal(resumed["stream"].graph.keys, whole["stream"].graph.keys):
+        raise AssertionError("train_gnn: the resumed run's graph differs")
+    losses = [h["loss"] for h in whole["history"]]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_gnn: losses {losses[0]} -> {losses[-1]}")
+    steps_s = [h["s"] for h in whole["history"]]
+    s = statistics.median(steps_s[1:])
+    out = {
+        "phase": "train_gnn", "config": cfg.name, "shape": "minibatch_lg", "n": n,
+        "m_start": int(g.m), "m_end": int(whole["stream"].graph.m), "B": B,
+        "fanout": list(shape["fanout"]), "steps": TRAIN_GNN_STEPS,
+        "stream_every": TRAIN_GNN_STREAM_EVERY, "first_step_s": steps_s[0],
+        "s_per_step": s, "seeds_per_s": B / s, "step_s": steps_s, "whole_run_s": whole_s,
+        "resumed_steps": len(resumed["history"]), "resume_run_s": resume_s,
+        "sampler_rebuilds": whole["stream"].rebuilds, "loss_first": losses[0],
+        "loss_last": losses[-1], "final_acc": whole["acc"], "chance": 1 / cfg.n_classes,
+        "peak_bytes": peak, "allocated_at_start_bytes": base, "log": lines,
+    }
+    out["card_vs_cpu"] = train_gnn_card_vs_cpu()
+    out["kernel_launches"] = all_launches() - launches
+    if out["kernel_launches"]:
+        raise AssertionError(f"train_gnn: {out['kernel_launches']} hand-kernel launches on a "
+                             "path that has none")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit(out)
+    return out
+
+
+# dryrun: the reference's tests/test_cells.py REPRESENTATIVE cells on the
+# 16x16 fake mesh, and three cells that fit one card run there
+DRYRUN_CELLS = (
+    ("smollm-360m", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+    ("gcn-cora", "full_graph_sm"), ("graphsage-reddit", "minibatch_lg"),
+    ("schnet", "molecule"), ("graphcast", "molecule"), ("dcn-v2", "serve_p99"),
+    ("dcn-v2", "retrieval_cand"), ("aspen-stream", "update_2m"),
+)
+DRYRUN_CARD_CELLS = (("gcn-cora", "full_graph_sm"), ("dcn-v2", "serve_p99"),
+                     ("schnet", "molecule"))
+DRYRUN_KEYS = ("arch", "shape", "mesh", "n_chips", "ok", "build_s", "run_s", "flops_per_dev",
+               "bytes_per_dev", "collective_bytes_per_dev", "collective_kinds",
+               "collective_links", "resharded_views", "masked_local_ops", "compute_s_term",
+               "memory_s_term",
+               "collective_s_term", "dominant", "model_flops", "useful_compute_frac",
+               "mem_argument_bytes", "mem_model", "fits")
+
+
+def _int_high(path: str, cell, arch: str) -> int:
+    """The exclusive upper bound of an integer argument's draws."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get(arch).full
+    if path.endswith((".src", ".dst")):
+        return cell.meta["n_nodes"]
+    if path.endswith(".graph_ids"):
+        return max(registry.GNN_SHAPES["molecule"]["batch"], 1)
+    if path.endswith("['labels']"):
+        return cfg.n_classes
+    if path.endswith("['sparse_ids']") or path == "[2]":
+        return cfg.vocab_per_field
+    raise AssertionError(f"dryrun: no range for the integer argument {path}")
+
+
+def card_args(cell, arch: str, gen):
+    """The cell's meta arguments drawn on the card from ``gen``: float
+    parameters and features N(0, 0.05^2), distances in [0, 10), optimizer
+    moments and step 0, masks all true, ids in range."""
+    import torch
+
+    from repro_torch import _tree
+
+    flat = _tree.flatten_with_paths(cell.args)
+    out = []
+    for path, t in flat:
+        if ".opt/" in path or path.endswith(".step"):
+            x = torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+        elif t.dtype == torch.bool:
+            x = torch.ones(t.shape, dtype=torch.bool, device="cuda")
+        elif t.is_floating_point():
+            x = torch.randn(t.shape, generator=gen, device="cuda", dtype=t.dtype) * 0.05
+            if path.endswith(".edge_attr"):
+                x = torch.rand(t.shape, generator=gen, device="cuda") * 10.0
+        else:
+            high = _int_high(path, cell, arch)
+            if path.endswith(".graph_ids"):  # atoms of one molecule together
+                x = (torch.arange(t.shape[0], device="cuda") * high // t.shape[0]).to(t.dtype)
+            else:
+                x = torch.randint(0, high, t.shape, generator=gen, device="cuda",
+                                  dtype=t.dtype)
+        out.append(x)
+    return _tree.unflatten(cell.args, out)
+
+
+DRYRUN_OUT = ROOT / "build" / "dryrun_cells.jsonl"
+
+
+def dryrun_cells(path: str) -> int:
+    """``chip_smoke.py --dryrun-cells PATH``: the dry run of
+    ``DRYRUN_CELLS``, one JSON line per cell to ``PATH``.  Host work only
+    (meta tensors on a ``fake`` process group of 256 ranks); the main run
+    starts it in a process of its own, beside the card's phases."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(2)
+    with open(path, "w") as f:
+        for arch, shape in DRYRUN_CELLS:
+            t = time.perf_counter()
+            res = dryrun.run_cell(arch, shape, False)
+            line = {k: res[k] for k in DRYRUN_KEYS}
+            line["wall_s"] = time.perf_counter() - t
+            f.write(json.dumps(line) + "\n")
+            f.flush()
+    return 0
+
+
+def start_dryrun_cells() -> subprocess.Popen:
+    """``dryrun_cells`` in a child process that cannot see the card,
+    stopped when this process exits."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    err = open(str(DRYRUN_OUT) + ".err", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+                             str(DRYRUN_OUT)], env=env, stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def phase_dryrun(smi: str, proc: subprocess.Popen) -> dict:
+    """The port's dry run (``launch.dryrun``): the reference's nine
+    representative cells at full width on the 16x16 fake mesh (a ``fake``
+    process group of 256 ranks, meta tensors, nothing allocated), one line
+    per cell, from the child process ``proc`` started after the build;
+    then three cells that fit one card (gcn-cora full_graph_sm, dcn-v2
+    serve_p99, schnet molecule) run on it at 1x1 with arguments drawn from
+    the seed, their measured time and peak memory beside the 1x1 dry run's
+    FLOPs, bytes, roofline terms and memory model.  No kernel runs here."""
+    import types
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.launch import cells, dryrun
+
+    launches = all_launches()
+    out = {"phase": "dryrun", "card": smi, "cells": [], "card_cells": []}
+    t = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    out["wait_s"] = time.perf_counter() - t
+    if rc != 0:
+        err = Path(str(DRYRUN_OUT) + ".err").read_text()[-3000:]
+        raise AssertionError(f"dryrun: the cells' process exited {rc}:\n{err}")
+    for text in DRYRUN_OUT.read_text().splitlines():
+        line = json.loads(text)
+        if not (line["ok"] and line["flops_per_dev"] >= 0 and line["bytes_per_dev"] > 0):
+            raise AssertionError(f"dryrun {line['arch']}/{line['shape']}: {line}")
+        out["cells"].append(line)
+        emit({"phase": "dryrun_cell", **line})
+    if len(out["cells"]) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dryrun: {len(out['cells'])} of {len(DRYRUN_CELLS)} cells")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    host = types.SimpleNamespace(shape={"data": 1, "model": 1})
+    for arch, shape in DRYRUN_CARD_CELLS:
+        dry = dryrun.run_cell(arch, shape, False, host=True)
+        cell = cells.build_cell(arch, shape, host)
+        args = card_args(cell, arch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = cell.step_fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for leaf in _tree.leaves(res):
+            if leaf.is_floating_point() and not bool(leaf.isfinite().all()):
+                raise AssertionError(f"dryrun card {arch}/{shape}: a non-finite output")
+        ms = time_ms(lambda: cell.step_fn(*args), reps=10)
+        terms = {k: dry[k] for k in ("compute_s_term", "memory_s_term", "collective_s_term")}
+        line = {"arch": arch, "shape": shape, "mesh": "1x1", "ms": ms,
+                "max_memory_allocated": peak, "allocated_before": base,
+                "mem_argument_bytes": dry["mem_argument_bytes"], "mem_model": dry["mem_model"],
+                "flops": dry["flops_per_dev"], "bytes": dry["bytes_per_dev"], **terms,
+                "dominant": dry["dominant"], "roofline_ms": 1e3 * max(terms.values()),
+                "model_flops": dry["model_flops"]}
+        out["card_cells"].append(line)
+        emit({"phase": "dryrun_card", **line})
+        del args, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kernel_launches"] = all_launches() - launches
+    if out["kernel_launches"]:
+        raise AssertionError(f"dryrun: {out['kernel_launches']} hand-kernel launches")
+    emit({"phase": "dryrun", "cells": len(out["cells"]), "card_cells": len(out["card_cells"]),
+          "kernel_launches": out["kernel_launches"]})
+    return out
+
+
 def sharded_row(cases, name: str) -> dict | None:
     """A kernel row's numbers at the sharded path's default launch shape
     (per shard, D = 1)."""
@@ -4178,6 +4515,8 @@ def tile_fields(cases, name: str, shape: str | None = None) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-cells":
+        return dryrun_cells(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -4213,6 +4552,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     run("env", phase_env, smi)
+    dry_proc = start_dryrun_cells()  # host work, beside the card's phases
     run("kernels", phase_kernels)
     run("decode_kernels", phase_decode_kernels)
     stream_launches, plain_stream = run("stream", phase_stream)
@@ -4237,7 +4577,9 @@ def main() -> int:
     gc.collect()  # the compressed sharded pools leave the card here
     torch.cuda.empty_cache()
     run("gnn_kernels", phase_gnn_kernels)
-    sampled = run("gnn_sampled", phase_gnn_sampled)
+    sampled, g_reddit, feats = run("gnn_sampled", phase_gnn_sampled)
+    run("train_gnn", phase_train_gnn, g_reddit, feats)
+    del g_reddit, feats  # the Reddit-scale graph leaves the card here
     gc.collect()
     torch.cuda.empty_cache()
     full = run("gnn_full", phase_gnn_full)
@@ -4260,6 +4602,9 @@ def main() -> int:
     gc.collect()  # the MoE weights leave the card here
     torch.cuda.empty_cache()
     run("gnn_molecule", phase_gnn_molecule, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("dryrun", phase_dryrun, smi, dry_proc)
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     emit({"autotune_by_phase": {k: v for k, v in tuning.items() if v["consults"]},
           "autotune_total": tune_totals()})

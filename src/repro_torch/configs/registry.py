@@ -1,10 +1,9 @@
 """Architecture registry: the 10 assigned archs and the paper's own
 config, ``LM_SHAPES``, ``GNNConfig``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
-``DCNConfig``, ``STREAM_SHAPES``, ``StreamConfig``, ``ArchSpec`` and
-``get``.
+``DCNConfig``, ``STREAM_SHAPES``, ``StreamConfig``, ``ArchSpec``, ``get``
+and ``all_cells`` (the dry run's cell list).
 
-Counterpart of ``repro/configs/registry.py:19-115`` (``all_cells``, the
-dry-run's cell list, waits for the dry-run tooling, ROADMAP item 14).
+Counterpart of ``repro/configs/registry.py``.
 ``aspen-stream`` is the paper's own configuration.  Each config module
 defines FULL (the assigned numbers), REDUCED (smoke scale) and the shape
 set of its family.  The LM configs are ``models.transformer.LMConfig``s.
@@ -119,3 +118,13 @@ def get(arch_id: str) -> ArchSpec:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.SPEC
+
+
+def all_cells(include_stream: bool = False):
+    """Yield every (arch_id, shape_name) dry-run cell (40 assigned)."""
+    for a in ARCH_IDS:
+        if a == "aspen-stream" and not include_stream:
+            continue
+        spec = get(a)
+        for s in spec.shapes:
+            yield a, s

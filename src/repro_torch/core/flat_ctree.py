@@ -255,7 +255,7 @@ def union_merge(t: FlatCTree, batch: FlatCTree, out_cap: int) -> FlatCTree:
 
     pos_b = torch.where(keep_b, rb + kb_excl, out_cap)
 
-    out = torch.full((out_cap,), sentinel_for(a.dtype), dtype=a.dtype, device=dev)
+    out = a.new_full((out_cap,), sentinel_for(a.dtype))
     out = _scatter(_scatter(out, pos_a, a), pos_b, b)
     n_out = (t.n + keep_b.sum()).to(torch.int32)
     va, vb = _aligned_vals(t, batch)
@@ -263,7 +263,7 @@ def union_merge(t: FlatCTree, batch: FlatCTree, out_cap: int) -> FlatCTree:
         return FlatCTree(out, n_out)
     # values ride the same two scatters; a duplicate b key lands its value
     # on the matched a slot (insert overwrites, PaC-tree style)
-    vout = torch.zeros(out_cap, dtype=va.dtype, device=dev)
+    vout = va.new_zeros(out_cap)
     vout = _scatter(_scatter(vout, pos_a, va), pos_b, vb)
     pos_dup = torch.where(dup_b, pos_a[ia], out_cap)
     vout = _scatter(vout, pos_dup, vb)

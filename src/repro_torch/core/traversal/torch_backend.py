@@ -709,7 +709,7 @@ def dense_expand(g: FlatGraph, frontier: torch.Tensor, aux: Optional[EngineAux] 
     src_c, dst_c, evalid = _endpoints(g, aux)
     n = g.n
     msg = frontier[src_c.long()] & evalid
-    out = torch.zeros(n + 1, dtype=torch.bool, device=g.device)
+    out = msg.new_zeros(n + 1)
     out[torch.where(msg, dst_c.long(), n)] = True
     return out[:n]
 

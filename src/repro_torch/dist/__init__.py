@@ -1,2 +1,4 @@
-"""Fault tolerance for training runs (counterpart of ``repro/dist/fault_tolerance.py``);
-the sharding rules come with ROADMAP item 14, the ranks with item 16."""
+"""Distribution: fault tolerance for training runs (counterpart of
+``repro/dist/fault_tolerance.py``) and the sharding rules (``shardings``,
+counterpart of ``repro/dist/shardings.py``) that the cell builders and the
+dry run read; ranks across GPUs that hold the shards are ROADMAP item 16."""

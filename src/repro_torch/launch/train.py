@@ -129,7 +129,8 @@ def main(argv=None):
         params, step_fn, batch_fn = make_dcn_run(cfg, args)
     else:
         raise SystemExit(
-            f"--arch {args.arch}: use examples/train_gnn.py for the GNN family"
+            f"--arch {args.arch}: use python -m repro_torch.launch.train_gnn for the GNN "
+            "family (the port of examples/train_gnn.py)"
         )
 
     start_step = 0

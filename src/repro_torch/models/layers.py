@@ -41,7 +41,11 @@ Params = Dict[str, Any]
 def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
     """Standard normal draws from ``gen`` (on the generator's device),
-    times ``scale``, as ``dtype`` on ``device``."""
+    times ``scale``, as ``dtype`` on ``device``.  On the meta device it
+    draws nothing and ``gen`` may be None: the dry run's cells take their
+    parameters' shapes from the inits without allocating."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
     return (x * scale).to(dtype=dtype, device=device)
 

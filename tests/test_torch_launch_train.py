@@ -150,7 +150,7 @@ def test_cli_runs_in_a_subprocess(tmp_path):
 
 @pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "graphcast"])
 def test_gnn_family_exits_with_the_reference_message(arch):
-    with pytest.raises(SystemExit, match="use examples/train_gnn.py for the GNN family"):
+    with pytest.raises(SystemExit, match="use python -m repro_torch.launch.train_gnn for the GNN"):
         ttrain.main(["--arch", arch, "--reduced", "--device", CPU])
 
 
