@@ -2332,6 +2332,7 @@ def phase_sharded_scale(g, aux) -> tuple:
     import torch
 
     from repro_torch.core.traversal import ShardedEngine, sharded_graph_of_flat
+    from repro_torch.core.traversal import algorithms as talg
     from repro_torch.core.traversal import sharded_backend as sb
     from repro_torch.core.traversal import torch_backend as tb
     from repro_torch.kernels import segment_reduce as sr
@@ -2349,6 +2350,12 @@ def phase_sharded_scale(g, aux) -> tuple:
     ref, out["flat_answers_s"] = timed_s(lambda: reference_answers(flat, flat_w, srcs, resets))
     out["flat_resident_bytes_per_edge"] = flat.resident_nbytes / m
     del flat_w
+    # the flat engine's answers the ``ranks`` phase's engines are held to
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(RANKS_DIR / "scale_ref.npz", srcs=srcs, pr=np.asarray(ref["pr"], np.float32),
+             bfs_parents=digest(ref["bfs"][0]), bfs_depths=digest(ref["bfs"][1]),
+             bfs=digest(talg.bfs(flat, int(srcs[0]))), cc=digest(ref["cc"]),
+             sssp=digest(ref["sssp"]))
 
     sr.reset_launches()
     sg, out["sharded_graph_of_flat_s"] = timed_s(lambda: sharded_graph_of_flat(g, SHARDS))
@@ -2588,6 +2595,389 @@ def phase_sharded_stream(plain_stream) -> dict:
         rebalances=sst.rebalances, mean_publish_s={k: float(np.mean(v)) for k, v in publish_s.items()},
         publish_s=publish_s, checks=checks, shard_stats=sst.shard_stats(),
         phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ranks and moe_shardmap: the sharded engines, the sharded stream and the
+# shard_map MoE across torch.distributed ranks.  Each rank is a child
+# process (``chip_smoke.py --rank-job JOB RANK``) that meets its peers
+# under a FileStore in build/ranks/ and writes its answers there; this
+# process holds no process group.
+# ---------------------------------------------------------------------------
+
+RANKS_DIR = ROOT / "build" / "ranks"
+RANK_TIMEOUT_S = 480
+# job -> (world size, backend); None: one rank and no process group
+RANK_JOBS = {
+    "engines_nccl": (1, "nccl"),  # (a) every collective through NCCL
+    "engines_gloo": (2, "gloo"),  # (b) two ranks sharing the card
+    "stream_one": (1, None),  # (c) the one-rank stream the ranks are held to
+    "stream_gloo": (2, "gloo"),  # (c) two ranks
+    "moe_nccl": (1, "nccl"),  # moe_shardmap on a 1x1 mesh, FULL width
+    "moe_gloo": (2, "gloo"),  # moe_shardmap on a 2x1 mesh, REDUCED width
+}
+RANK_STREAM_LOG_N = 16  # cut from sharded_stream's 2^18: each rank builds its own tree
+RANK_STREAM_DRAWS = 2**19
+RANK_COMM = (15, 32)  # the compressed engines' rMAT communities: 32 of 2^15 vertices
+MOE_RANK_TOL = {"bfloat16": 1e-2, "float32": 1e-5}  # of max|moe.py|
+
+
+def digest(x) -> str:
+    """sha1 of an array's bytes, with its dtype and shape."""
+    import hashlib
+
+    import torch
+
+    a = np.ascontiguousarray(x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x))
+    return f"{hashlib.sha1(a.tobytes()).hexdigest()}:{a.dtype}:{a.shape}"
+
+
+def rank_launches() -> dict:
+    from repro_torch.kernels import delta_decode as dd
+    from repro_torch.kernels import segment_reduce as sr
+
+    return {**{k: v for k, v in sr.LAUNCHES.items() if v},
+            **{k: v for k, v in dd.LAUNCHES.items() if v}}
+
+
+def rank_engine_answers(eng, eng_w, srcs) -> dict:
+    """The digests (and PageRank) a rank's engines give."""
+    import torch
+
+    from repro_torch.core.traversal import algorithms as talg
+
+    t = time.perf_counter()
+    par, dep = eng.bfs_batch(srcs)
+    out = {"bfs_batch": [digest(par), digest(dep)],
+           "bfs": digest(talg.bfs(eng, int(srcs[0]))),
+           "cc": digest(talg.connected_components(eng)),
+           "sssp": digest(eng_w.sssp_batch(srcs[:4]))}
+    pr = np.asarray(talg.pagerank(eng, iters=10), np.float32)
+    torch.cuda.synchronize()
+    out["queries_s"] = time.perf_counter() - t
+    return out, pr
+
+
+def rank_engines(tag: str) -> dict:
+    """(a) / (b): ``ShardedEngine`` on sharded_scale's graph (2^22
+    vertices, ~66 M edges, drawn again on the card from its seed), this
+    rank's block of the 8 shard rows; its answers for the flat engine's
+    (the parent's ``scale_ref.npz``).  Then ``CompressedShardedEngine``
+    beside a raw one on rMAT communities (the compressed layout raises on
+    plain rMAT past 2^15, as the reference's does)."""
+    import torch
+
+    from repro_torch.core import sharded_pool as sp
+    from repro_torch.core.traversal import CompressedShardedEngine, ShardedEngine
+    from repro_torch.core.traversal import sharded_backend as sb
+    from repro_torch.kernels import delta_decode as dd
+    from repro_torch.kernels import segment_reduce as sr
+
+    ref = np.load(RANKS_DIR / "scale_ref.npz")
+    srcs = ref["srcs"]
+    mesh = sp.pool_mesh(SHARDS, "cuda")
+    out = {"mesh_size": mesh.size}
+
+    def build(log_n, draws, seed, communities=1):
+        keys = rmat_keys_device(log_n, draws, seed, communities)
+        src, dst = keys >> 32, keys & 0xFFFFFFFF
+        w = ((torch.minimum(src, dst) * 1000003 + torch.maximum(src, dst)) % 7 + 1).float()
+        n, m = communities << log_n, keys.numel()
+        sg = sp.ShardedGraph(sp.from_sorted_device(keys, m, SHARDS, mesh=mesh), n)
+        sgw = sp.ShardedGraph(sp.from_sorted_device(keys, m, SHARDS, w, mesh=mesh), n)
+        return sg, sgw, m
+
+    sg, sgw, out["m"] = build(22, 2**25, 2)
+    sr.reset_launches()
+    dd.reset_launches()
+    with sb.collective_log() as log:
+        eng, eng_w = ShardedEngine(sg), ShardedEngine(sgw)
+        out["scale"], pr = rank_engine_answers(eng, eng_w, srcs)
+    out["scale"]["pagerank_max_rel_err"] = check_pagerank(pr, ref["pr"], f"ranks {tag}")
+    out["rows"] = sg.pool.rows
+    out["resident_bytes"] = eng.resident_nbytes
+    out["collectives"] = len(log)
+    out["bytes_sent"] = sum(b for _, b in log)
+    out["max_operand_bytes"] = max(b for _, b in log)
+    del eng, eng_w, sg, sgw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log_c, n_comm = RANK_COMM
+    cg, cgw, out["comm_m"] = build(log_c, 2**23, 4, n_comm)
+    rng = np.random.default_rng(SEED + 24)
+    csrcs = rng.choice(n_comm << log_c, 16, replace=False)
+    raw, _ = rank_engine_answers(ShardedEngine(cg), ShardedEngine(cgw), csrcs)
+    with sb.collective_log() as log:
+        ce = CompressedShardedEngine(sp.compress_sharded(cg, mesh=mesh))
+        cew = CompressedShardedEngine(sp.compress_sharded(cgw, mesh=mesh))
+        comp, _ = rank_engine_answers(ce, cew, csrcs)
+    for k in ("bfs_batch", "bfs", "cc", "sssp"):
+        if comp[k] != raw[k]:
+            raise AssertionError(f"ranks {tag}: compressed {k} differs from the raw engine")
+    out["compressed"] = {"queries_s": comp["queries_s"], "raw_queries_s": raw["queries_s"],
+                         "resident_bytes": ce.resident_nbytes, "bytes_sent": sum(b for _, b in log)}
+    out["launches"] = rank_launches()
+    for k in ("segment_sum", "segment_sum_chunked_adaptive", "delta_decode_chunked_adaptive"):
+        if not out["launches"].get(k):
+            raise AssertionError(f"ranks {tag}: {k} never launched on rank: {out['launches']}")
+    out["host_copied"] = sorted(sb.HOST_COPIED)
+    return out
+
+
+def rank_stream(tag: str) -> dict:
+    """(c): ``AspenStream(mirror="sharded", n_shards=8)`` on a tree built
+    here (2^16 vertices), sharded_stream's four publishes (an insert, a
+    delete of half of it, an out-edge batch past the fullest row's slack
+    that makes the capacity policy rebalance, a delete of every 64th row
+    of it); after each, the lanes of all 8 rows gathered here, BFS and
+    PageRank from ``query_batch``."""
+    import torch
+
+    from repro_torch.core import graph as G
+    from repro_torch.core import sharded_pool as sp
+    from repro_torch.core import streaming as st
+    from repro_torch.data.rmat import rmat_edges, symmetrize
+    from repro_torch.kernels import segment_reduce as sr
+
+    n = 2**RANK_STREAM_LOG_N
+    edges = symmetrize(rmat_edges(RANK_STREAM_LOG_N, RANK_STREAM_DRAWS, seed=1))
+    t = time.perf_counter()
+    sst = st.AspenStream(G.build_graph(n, edges), mirror="sharded", n_shards=SHARDS,
+                         device="cuda")
+    out = {"n": n, "m0": int(edges.shape[0]), "tree_and_mirror_s": time.perf_counter() - t}
+    mesh = sp.pool_mesh(SHARDS, "cuda")
+    live = np.flatnonzero(np.bincount(edges[:, 0], minlength=n) > 0)
+    rng = np.random.default_rng(SEED + 23)
+    resets = rng.random((2, n))
+    resets /= resets.sum(1, keepdims=True)
+    checks, prs = [], []
+
+    def publish(method, *args, **kw):
+        t = time.perf_counter()
+        getattr(sst, method)(*args, **kw)
+        torch.cuda.synchronize()
+        publish_s = time.perf_counter() - t
+        p = sp.gather_pool(sst.sharded_graph().pool, mesh)
+        srcs = rng.choice(live, 16, replace=False)
+        checks.append({"publish": method, "publish_s": publish_s,
+                       "keys": digest(sp.to_array(p)), "n": p.n.tolist(), "cap": p.cap_per,
+                       "lo": digest(p.lo), "rows": sst.sharded_graph().pool.rows,
+                       "rebalances": sst.rebalances,
+                       "bfs": digest(sst.query_batch(srcs, kind="bfs"))})
+        prs.append(np.asarray(sst.query_batch(kind="pagerank", resets=resets), np.float32))
+
+    sr.reset_launches()
+    pairs = rng.choice(live, (SHARD_STREAM_BATCH, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    publish("insert_edges", pairs)
+    publish("delete_edges", pairs[: pairs.shape[0] // 2])
+    counts = sp.shard_counts(sst.sharded_graph().pool, mesh)
+    k = int(sst.sharded_graph().pool.cap_per - counts.max()) + 1
+    heads = live[-64:]
+    per = -(-k // heads.size) + 1
+    big = np.stack([np.repeat(heads, per),
+                    np.concatenate([rng.choice(n, per, replace=False) for _ in heads])], 1)
+    big = big[big[:, 0] != big[:, 1]]
+    publish("insert_edges", big, symmetric=False)
+    if sst.rebalances < 1:
+        raise AssertionError(f"ranks {tag}: the capacity policy did not rebalance")
+    publish("delete_edges", big[::64], symmetric=False)
+    np.save(RANKS_DIR / f"{tag}_pagerank.npy", np.stack(prs))
+    out.update(checks=checks, launches=rank_launches(), rebalances=sst.rebalances,
+               resident_bytes=sst.engine("sharded").resident_nbytes)
+    if not out["launches"].get("segment_sum"):
+        raise AssertionError(f"ranks {tag}: segment_sum never launched: {out['launches']}")
+    return out
+
+
+def rank_moe(tag: str) -> dict:
+    """``moe_apply_shardmap`` over a (ranks, 1) ("data", "model") mesh:
+    this rank's rows of x against ``moe.moe_apply`` on the whole batch,
+    both on the card from the same seeded weights.  On one NCCL rank
+    qwen3-moe-30b-a3b FULL in bf16 at B 1 x 2048 (one layer's MoE block);
+    on two gloo ranks its REDUCED width in float32 at B 2 x 1024 with
+    capacity 16, so no expert overflows a rank's local slots."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import qwen3_moe_30b_a3b as qm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe as M
+    from repro_torch.models import moe_shardmap as MS
+
+    world = dist.get_world_size()
+    mesh = mesh_lib.rank_mesh((world, 1), ("data", "model"), device="cuda")
+    if world == 1:
+        cfg, dtype, B, S = qm.FULL, torch.bfloat16, 1, MOE_PREFILL_S
+    else:
+        cfg, dtype, B, S = qm.REDUCED, torch.float32, 2, 1024
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    p = M.moe_init(gen, cfg, dtype, device="cuda")
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(dtype)
+    b = B // world
+    di = mesh.get_coordinate()[0]
+    want = M.moe_apply(p, cfg, x)[di * b:(di + 1) * b]
+    got = MS.moe_apply_shardmap(p, cfg, x[di * b:(di + 1) * b], mesh)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"moe_shardmap {tag}: a non-finite output")
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    tol = MOE_RANK_TOL[str(dtype).split(".")[1]]
+    if err > tol * scale:
+        raise AssertionError(f"moe_shardmap {tag}: off by {err} (max|want| {scale})")
+    xl = x[di * b:(di + 1) * b].contiguous()
+    return {"config": cfg.name, "dtype": str(dtype).split(".")[1], "B": B, "S": S,
+            "mesh": [world, 1], "max_abs_err": err, "max_abs_want": scale,
+            "shardmap_ms": time_ms(lambda: MS.moe_apply_shardmap(p, cfg, xl, mesh), reps=5),
+            "moe_ms": time_ms(lambda: M.moe_apply(p, cfg, xl), reps=5)}
+
+
+RANK_FNS = {"engines": rank_engines, "stream": rank_stream, "moe": rank_moe}
+
+
+def rank_job(job: str, rank: int) -> int:
+    """``chip_smoke.py --rank-job JOB RANK``: one rank of ``RANK_JOBS[job]``
+    on the card, its answers to build/ranks/JOB_RANK.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world, backend = RANK_JOBS[job]
+    tag = f"{job}_{rank}"
+    t = time.perf_counter()
+    if backend is not None:
+        mesh_lib.init_ranks(backend, "cuda", init_method=f"file://{RANKS_DIR / job}.store",
+                            rank=rank, world_size=world)
+    try:
+        res = RANK_FNS[job.split("_")[0]](tag)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
+    res.update(job=job, rank=rank, world=world, backend=backend,
+               device=torch.cuda.get_device_name(0), wall_s=time.perf_counter() - t)
+    (RANKS_DIR / f"{tag}.json").write_text(json.dumps(res))
+    return 0
+
+
+def start_rank_jobs() -> dict:
+    """Every rank of ``RANK_JOBS``, started at once, each a process that
+    is stopped when this one exits; each reads a copy of the autotuner's
+    table."""
+    for f in RANKS_DIR.glob("*"):
+        if f.suffix in (".json", ".store", ".err", ".npy") or f.name.startswith("tune_"):
+            f.unlink()
+    procs = {}
+    for job, (world, _) in RANK_JOBS.items():
+        for r in range(world):
+            tune = RANKS_DIR / f"tune_{job}_{r}.json"
+            if TUNE_TABLE.exists():
+                shutil.copy(TUNE_TABLE, tune)
+            env = dict(os.environ, OMP_NUM_THREADS="2", REPRO_TORCH_AUTOTUNE_CACHE=str(tune))
+            err = open(RANKS_DIR / f"{job}_{r}.err", "w")
+            p = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-job",
+                                  job, str(r)], env=env, stdout=err, stderr=subprocess.STDOUT)
+            err.close()
+            atexit.register(lambda p=p: p.poll() is None and p.kill())
+            procs[(job, r)] = p
+    return procs
+
+
+def wait_rank_jobs(procs: dict, jobs, t0: float) -> dict:
+    """The jobs' results by job, each a list by rank; every rank must exit
+    0 within ``RANK_TIMEOUT_S`` of ``t0`` (else all are stopped)."""
+    out = {}
+    for job in jobs:
+        for r in range(RANK_JOBS[job][0]):
+            p = procs[(job, r)]
+            try:
+                rc = p.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                for q in procs.values():
+                    q.poll() is None and q.kill()
+                raise AssertionError(f"ranks: {job} rank {r} still running after "
+                                     f"{RANK_TIMEOUT_S} s")
+            if rc != 0:
+                err = (RANKS_DIR / f"{job}_{r}.err").read_text()[-3000:]
+                raise AssertionError(f"ranks: {job} rank {r} exited {rc}:\n{err}")
+            out.setdefault(job, []).append(
+                json.loads((RANKS_DIR / f"{job}_{r}.json").read_text()))
+    return out
+
+
+def phase_ranks(procs: dict, t0: float) -> dict:
+    """(a) ``ShardedEngine`` / ``CompressedShardedEngine`` on one NCCL rank
+    and (b) on two gloo ranks sharing the card (4 of 8 rows each): the
+    flat engine's BFS, ``bfs_batch`` x16, CC and integer SSSP bit for bit,
+    PageRank within atol 1e-6; (c) the sharded stream on two gloo ranks:
+    after each publish the lanes of all rows and BFS equal the one-rank
+    stream's, PageRank within atol 1e-6.  The segment-sum (and, for the
+    compressed engine, decode) kernels launch on every rank."""
+    ref = np.load(RANKS_DIR / "scale_ref.npz")
+    res = wait_rank_jobs(procs, ("engines_nccl", "engines_gloo", "stream_one", "stream_gloo"),
+                         t0)
+    out = {"phase": "ranks", "wait_s": time.perf_counter() - t0, "engines": {}, "stream": {}}
+    for job in ("engines_nccl", "engines_gloo"):
+        world = RANK_JOBS[job][0]
+        for r in res[job]:
+            if r["rows"] != SHARDS // world or r["mesh_size"] != world:
+                raise AssertionError(f"ranks {job}: rank {r['rank']} holds {r['rows']} rows")
+            for k in ("bfs", "cc", "sssp"):
+                if r["scale"][k] != str(ref[k]):
+                    raise AssertionError(f"ranks {job}: rank {r['rank']} {k} differs from the "
+                                         "flat engine")
+            if r["scale"]["bfs_batch"] != [str(ref["bfs_parents"]), str(ref["bfs_depths"])]:
+                raise AssertionError(f"ranks {job}: rank {r['rank']} bfs_batch differs")
+        out["engines"][job] = [{k: r[k] for k in ("rank", "backend", "rows", "resident_bytes",
+                                                  "collectives", "bytes_sent",
+                                                  "max_operand_bytes", "launches", "host_copied",
+                                                  "compressed", "wall_s")}
+                               | {"queries_s": r["scale"]["queries_s"],
+                                  "pagerank_max_rel_err": r["scale"]["pagerank_max_rel_err"]}
+                               for r in res[job]]
+    one = res["stream_one"][0]
+    pr_one = np.load(RANKS_DIR / "stream_one_0_pagerank.npy")
+    for r in res["stream_gloo"]:
+        if len(r["checks"]) != len(one["checks"]) or r["rebalances"] != one["rebalances"]:
+            raise AssertionError(f"ranks stream: rank {r['rank']} published otherwise")
+        for i, (a, b) in enumerate(zip(r["checks"], one["checks"])):
+            for k in ("keys", "n", "cap", "lo", "bfs"):
+                if a[k] != b[k]:
+                    raise AssertionError(f"ranks stream: rank {r['rank']} publish {i} {k} "
+                                         "differs from one rank")
+            if a["rows"] != SHARDS // 2:
+                raise AssertionError(f"ranks stream: rank {r['rank']} holds {a['rows']} rows")
+        pr = np.load(RANKS_DIR / f"stream_gloo_{r['rank']}_pagerank.npy")
+        if not np.allclose(pr, pr_one, rtol=0, atol=1e-6):
+            raise AssertionError(f"ranks stream: rank {r['rank']} pagerank off by "
+                                 f"{np.abs(pr - pr_one).max()}")
+    out["stream"] = {"n": one["n"], "m0": one["m0"], "rebalances": one["rebalances"],
+                     "one_rank": {k: one[k] for k in ("tree_and_mirror_s", "launches",
+                                                      "resident_bytes", "wall_s")}
+                     | {"publish_s": [c["publish_s"] for c in one["checks"]]},
+                     "ranks": [{k: r[k] for k in ("rank", "tree_and_mirror_s", "launches",
+                                                  "resident_bytes", "wall_s")}
+                               | {"publish_s": [c["publish_s"] for c in r["checks"]]}
+                               for r in res["stream_gloo"]]}
+    emit(out)
+    return out
+
+
+def phase_moe_shardmap(procs: dict, t0: float) -> dict:
+    """The shard_map MoE's ranks (started with the ``ranks`` phase's):
+    qwen3-moe-30b-a3b FULL bf16 on a 1x1 NCCL mesh and REDUCED float32 on
+    a 2x1 gloo mesh, each against ``moe.py`` on the same input."""
+    res = wait_rank_jobs(procs, ("moe_nccl", "moe_gloo"), t0)
+    out = {"phase": "moe_shardmap", "runs": [r for job in ("moe_nccl", "moe_gloo")
+                                             for r in res[job]]}
     emit(out)
     return out
 
@@ -3398,6 +3788,7 @@ TRAIN_CKPT_AT = 3  # the checkpoint holds the state after this many steps
 TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 512
 TRAIN_REMAT_STEPS = 2  # per remat setting, for its peak memory and s/step
 TRAIN_DCN_STEPS = 4
+TRAIN_LONG_SEQ = 4096  # one step past CHUNKED_ATTN_THRESHOLD: the blockwise attention
 # the resumed run's losses against the uninterrupted run's: the same
 # float32 work on restored bits, so any difference is the card's own
 # run-to-run order (reported as bit_identical)
@@ -3600,6 +3991,50 @@ def card_against_cpu(arch: str, batch: int, seq=None) -> dict:
             "loss": [float(cm["loss"]), float(gm["loss"])]}
 
 
+def attention_saved_bytes(acfg, S: int, device: str = "cuda") -> int:
+    """Bytes autograd keeps for the backward of one layer's blockwise
+    attention at B 1 x ``S`` in float32 (``saved_tensors_hooks`` over the
+    block loop; each saved tensor counted once per save)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    q, k, v = (torch.randn((1, S, h, acfg.d_head), generator=gen, device=device)
+               .requires_grad_() for h in (acfg.n_heads, acfg.n_kv_heads, acfg.n_kv_heads))
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        o = L._blockwise_attention(q, k, v, acfg, acfg.d_head ** -0.5, False)
+    del o
+    return sum(saved)
+
+
+def long_seq_run(cfg) -> dict:
+    """smollm-360m FULL float32 at B 1 x S ``TRAIN_LONG_SEQ``: the blockwise
+    attention (S > ``CHUNKED_ATTN_THRESHOLD``), each kv step checkpointed.
+    Two steps (the first pays the warm-up), peak bytes, and one layer's
+    attention's saved bytes."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    if TRAIN_LONG_SEQ <= L.CHUNKED_ATTN_THRESHOLD:
+        raise AssertionError("train: the long step would not reach the blockwise attention")
+    out = remat_run(cfg, train_args("smollm-360m", 2, 1, "cuda", seq=TRAIN_LONG_SEQ))
+    if not all(np.isfinite(out["loss"])):
+        raise AssertionError(f"train: the S {TRAIN_LONG_SEQ} step's loss {out['loss']}")
+    out.update(batch=1, seq=TRAIN_LONG_SEQ, tokens_per_s=TRAIN_LONG_SEQ / out["s_per_step"],
+               attention_saved_bytes=attention_saved_bytes(cfg.attn_config, TRAIN_LONG_SEQ))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train() -> dict:
     """Training on the card through ``repro_torch.launch.train``: the LM and
     recsys runs at full width, the checkpoint resume, remat's memory, and
@@ -3657,6 +4092,7 @@ def phase_train() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    out["long"] = long_seq_run(cfg)
     out["card_vs_cpu"] = [card_against_cpu("smollm-360m", 4, 64), card_against_cpu("dcn-v2", 64)]
     out["kernel_launches"] = all_launches() - launches
     if out["kernel_launches"]:
@@ -4517,6 +4953,8 @@ def tile_fields(cases, name: str, shape: str | None = None) -> dict:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-cells":
         return dryrun_cells(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--rank-job":
+        return rank_job(sys.argv[2], int(sys.argv[3]))
     import torch
 
     if not torch.cuda.is_available():
@@ -4570,6 +5008,11 @@ def main() -> int:
     serve_launches = run("graph_serve", phase_graph_serve, plain_stream)
     sh_stream = run("sharded_stream", phase_sharded_stream, plain_stream)
     del plain_stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ranks, rank_procs = time.perf_counter(), start_rank_jobs()
+    run("ranks", phase_ranks, rank_procs, t_ranks)
+    run("moe_shardmap", phase_moe_shardmap, rank_procs, t_ranks)
     cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
     torch.cuda.empty_cache()

@@ -16,7 +16,8 @@ the reference writes (``.params/['embed']/['table']``, ``.opt/.step``).
 A reference checkpoint of a ``TrainState`` therefore restores into the
 port's ``TrainState`` template, and the reverse.  Every leaf's ``spec``
 is ``null``: re-sharding onto a mesh (``mesh``, ``target_specs``) comes
-with the ranks of ROADMAP item 16, and ``restore`` takes a device.
+with multi-rank training (ROADMAP item 16's open half), and ``restore``
+takes a device.
 
 bf16 leaves: numpy has no bfloat16 without ``ml_dtypes``, so a bf16
 tensor is written as its 16-bit patterns in a two-byte void array

@@ -16,14 +16,21 @@ REBALANCE: an O(m) redistribution to equal counts, amortised over many
 updates like an LSM compaction.
 
 The reference runs the shard rows as blocks of a device mesh under
-``shard_map``.  This port runs the one-device form: all ``S`` rows are
-stacked ``[S, cap_per]`` tensors on one card, every shard-local step is
-one batched pass over all rows (no Python loop over shards), and the
-collectives of the traversal engine are reductions over the leading
-shard axis (``traversal/sharded_backend.ShardedOps``).  ``PoolMesh`` names
-the device, the shard count and the rank count (1 here), and keeps the
-reference's divisibility guard; ranks across several GPUs are
-ROADMAP.md item 16.
+``shard_map``.  The port runs them as blocks of ranks: ``PoolMesh(size=k,
+rank=r)`` gives rank ``r`` the ``S / k`` rows ``[r S/k, (r+1) S/k)`` as
+stacked ``[S/k, cap_per]`` tensors on its device, every shard-local step
+is one batched pass over those rows (no Python loop over shards), and
+every cross-rank merge goes through ``traversal/sharded_backend.
+ShardedOps``: a reduction over the local rows, then a
+``torch.distributed`` collective (ROADMAP.md item 16, first half).  The
+boundary table ``lo`` stays whole on every rank (S keys): it routes a
+key to its row wherever the row lives.  One rank (no process group)
+holds all ``S`` rows, and every collective is the local reduction.
+``pool_mesh`` and ``default_n_shards`` read the process group when one
+is up; the divisibility guard is the reference's.  Every rank applies
+the same host batches in the same order, so the host policy
+(rebalance, capacity) reads the same global counts and decides alike;
+``assert_same_decision`` checks that once a publish.
 
 Graph substrate (DESIGN.md §9): the optional VALUE LANE carries one
 float32 per slot (insert overwrites, delete drops), ``shard_aux``
@@ -54,12 +61,13 @@ _INT64_MAX = int(np.iinfo(np.int64).max)
 class ShardedPool(NamedTuple):
     """Range-sharded sorted pool.
 
-    data : int64[S, cap_per] sorted within each shard; pad = SENT
-    n    : int32[S] valid counts
-    lo   : int64[S] inclusive lower key boundary of each shard
-    vals : optional float32[S, cap_per] per-slot values (pad 0), permuted
+    data : int64[R, cap_per] sorted within each shard; pad = SENT
+    n    : int32[R] valid counts
+    lo   : int64[S] inclusive lower key boundary of each shard (all S)
+    vals : optional float32[R, cap_per] per-slot values (pad 0), permuted
            by every shard-local merge and compaction alongside the keys
-    """
+
+    R is this rank's rows (``S / k``; all S on one rank)."""
 
     data: torch.Tensor
     n: torch.Tensor
@@ -68,6 +76,10 @@ class ShardedPool(NamedTuple):
 
     @property
     def n_shards(self) -> int:
+        return self.lo.shape[0]
+
+    @property
+    def rows(self) -> int:
         return self.data.shape[0]
 
     @property
@@ -80,31 +92,56 @@ class ShardedPool(NamedTuple):
 
 
 class PoolMesh(NamedTuple):
-    """The port's stand-in for the reference's one-axis device mesh: the
-    device the shard rows live on, and ``size`` ranks along the ``shard``
-    axis.  One card is one rank holding every row as a block; ``size``
-    must divide the shard count (the reference's guard)."""
+    """The port's counterpart of the reference's one-axis device mesh:
+    the device this rank's shard rows live on, ``size`` ranks along the
+    ``shard`` axis and this process's ``rank``.  Each rank holds the
+    block ``block(S)`` of ``S / size`` rows; ``size`` must divide the
+    shard count (the reference's guard).  ``distributed``: the ranks are
+    the default process group's, and every collective goes through it
+    (at one rank too); without it one rank holds every row and a
+    collective is the local reduction."""
 
     device: torch.device
     size: int = 1
+    rank: int = 0
+    distributed: bool = False
 
     @property
     def shape(self) -> dict:
         return {"shard": self.size}
 
+    def block(self, n_shards: int) -> slice:
+        """This rank's rows of ``n_shards``."""
+        r = n_shards // self.size
+        return slice(self.rank * r, (self.rank + 1) * r)
+
+
+def _world() -> tuple:
+    """(size, rank, whether a group is up) of the default process group,
+    (1, 0, False) when none is up."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank(), True
+    return 1, 0, False
+
 
 def pool_mesh(n_shards: int, device=None) -> PoolMesh:
-    """The mesh for ``n_shards`` rows: one rank on ``device`` (``None`` =
-    cuda); every collective is then a reduction over the local rows."""
+    """The mesh for ``n_shards`` rows on ``device`` (``None`` = cuda): one
+    rank per process of the default process group, or one rank holding
+    every row when none is up."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    return PoolMesh(resolve(device), 1)
+    size, rank, up = _world()
+    if n_shards % size:
+        raise ValueError(f"n_shards={n_shards} must be a multiple of the mesh size {size}")
+    return PoolMesh(resolve(device), size, rank, up)
 
 
 def default_n_shards() -> int:
-    """One shard row per rank: 1 on one card (the reference: the device
-    count)."""
-    return 1
+    """One shard row per rank: the process group's size, 1 without one
+    (the reference: the device count)."""
+    return _world()[0]
 
 
 def from_array(
@@ -113,10 +150,12 @@ def from_array(
     cap_per: int | None = None,
     vals: np.ndarray | None = None,
     device=None,
+    mesh: PoolMesh | None = None,
 ) -> ShardedPool:
     """Host build: dedup + range-partition to equal counts.  ``vals``
     optionally attaches one value per element (a duplicated key keeps the
-    FIRST occurrence's value)."""
+    FIRST occurrence's value).  With ``mesh``, this rank's rows only (the
+    boundaries of all)."""
     raw = np.asarray(values, dtype=np.int64)
     if vals is None:
         v = np.unique(raw)
@@ -149,24 +188,28 @@ def from_array(
             wdata[s, : chunk.size] = w[s * per: (s + 1) * per]
     lo[0] = _INT64_MIN
     dev = resolve(device)
+    blk = slice(None) if mesh is None else mesh.block(n_shards)
     return ShardedPool(
-        torch.from_numpy(data).to(dev),
-        torch.from_numpy(n).to(dev),
+        torch.from_numpy(data[blk]).to(dev),
+        torch.from_numpy(n[blk]).to(dev),
         torch.from_numpy(lo).to(dev),
-        None if wdata is None else torch.from_numpy(wdata).to(dev),
+        None if wdata is None else torch.from_numpy(wdata[blk]).to(dev),
     )
 
 
 def from_sorted_device(keys: torch.Tensor, m: int, n_shards: int,
-                       vals: torch.Tensor | None = None) -> ShardedPool:
+                       vals: torch.Tensor | None = None,
+                       mesh: PoolMesh | None = None) -> ShardedPool:
     """Device build from an already sorted, deduplicated key lane whose
     first ``m`` slots are valid (a ``FlatGraph``'s pool): the same
-    partition as ``from_array``, with no host round trip of the keys."""
+    partition as ``from_array``, with no host round trip of the keys.
+    With ``mesh``, this rank's rows only."""
     dev = keys.device
     per = -(-m // n_shards) if m else 1
     cap_per = max(8, int(2 ** np.ceil(np.log2(per * 2 + 1))))
-    data = torch.full((n_shards, cap_per), SENT, dtype=torch.int64, device=dev)
-    wdata = None if vals is None else torch.zeros((n_shards, cap_per), device=dev)
+    blk = range(n_shards)[slice(None) if mesh is None else mesh.block(n_shards)]
+    data = torch.full((len(blk), cap_per), SENT, dtype=torch.int64, device=dev)
+    wdata = None if vals is None else torch.zeros((len(blk), cap_per), device=dev)
     counts = [max(0, min(per, m - s * per)) for s in range(n_shards)]
     lo = [_INT64_MIN] * n_shards
     firsts = torch.stack([keys[min(s * per, max(m - 1, 0))] for s in range(n_shards)])
@@ -175,9 +218,10 @@ def from_sorted_device(keys: torch.Tensor, m: int, n_shards: int,
     next_lo = 0
     for s, c in enumerate(counts):
         if c:
-            data[s, :c] = keys[s * per: s * per + c]
-            if wdata is not None:
-                wdata[s, :c] = vals[s * per: s * per + c]
+            if s in blk:
+                data[s - blk.start, :c] = keys[s * per: s * per + c]
+                if wdata is not None:
+                    wdata[s - blk.start, :c] = vals[s * per: s * per + c]
             lo[s] = firsts[s]
             next_lo = lasts[s] + 1
         else:
@@ -185,7 +229,7 @@ def from_sorted_device(keys: torch.Tensor, m: int, n_shards: int,
     lo[0] = _INT64_MIN
     return ShardedPool(
         data,
-        torch.tensor(counts, dtype=torch.int32, device=dev),
+        torch.tensor(counts[blk.start: blk.stop], dtype=torch.int32, device=dev),
         torch.tensor(lo, dtype=torch.int64, device=dev),
         wdata,
     )
@@ -207,13 +251,50 @@ def _valid_prefixes(rows: torch.Tensor, n: torch.Tensor) -> np.ndarray:
 
 
 def to_array(p: ShardedPool) -> np.ndarray:
-    """The valid keys of every shard in shard order (the sorted pool)."""
+    """The valid keys of the pool's rows in shard order (the sorted pool;
+    on a rank, its block: ``gather_pool`` first for all of it)."""
     return _valid_prefixes(p.data, p.n)
 
 
 def to_val_array(p: ShardedPool) -> np.ndarray | None:
     """Valid-prefix values aligned with ``to_array`` (None on plain sets)."""
     return None if p.vals is None else _valid_prefixes(p.vals, p.n)
+
+
+def _ops(mesh: PoolMesh):
+    from .traversal.sharded_backend import ShardedOps
+
+    return ShardedOps(mesh)
+
+
+def gather_pool(p: ShardedPool, mesh: PoolMesh | None = None) -> ShardedPool:
+    """Every rank's rows gathered onto each rank (an O(pool) all-gather:
+    the rebalance's compaction and checks read it); ``p`` itself on one
+    rank."""
+    if mesh is None or mesh.size == 1:
+        return p
+    ops = _ops(mesh)
+    return ShardedPool(ops.gather_rows(p.data), ops.gather_rows(p.n), p.lo,
+                       None if p.vals is None else ops.gather_rows(p.vals))
+
+
+def shard_counts(p, mesh: PoolMesh | None = None) -> np.ndarray:
+    """The valid counts of all S rows (one host read; the rows of every
+    rank, gathered, under a process group)."""
+    n = p.n if mesh is None or mesh.size == 1 else _ops(mesh).gather_rows(p.n)
+    return n.cpu().numpy()
+
+
+def assert_same_decision(mesh: PoolMesh | None, *decision) -> None:
+    """Raise unless every rank passes the same ``decision`` (ints): one
+    scalar all-reduce of a hash of it.  The host policy runs on every
+    rank from the same batches and counts, so a difference is a fault."""
+    if mesh is None or mesh.size == 1:
+        return
+    h = hash(tuple(int(d) for d in decision)) & ((1 << 40) - 1)
+    if not _ops(mesh).same_on_every_rank(h):
+        raise RuntimeError(f"rank {mesh.rank}: the host policy decided {decision}, "
+                           "another rank decided otherwise")
 
 
 def with_unit_vals(p: ShardedPool) -> ShardedPool:
@@ -242,7 +323,7 @@ def _hi_bounds(lo: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo[1:], lo.new_full((1,), _INT64_MAX)])
 
 
-def _local_merge(data, n, lo, batch, vals=None, bvals=None):
+def _local_merge(data, n, lo, hi, batch, vals=None, bvals=None):
     """Merge each shard's slice of the sorted, deduplicated, SENT-padded
     batch into its own row (fixed shapes, O(cap + k) per row): the
     reference's vmapped ``_local_merge``.  The value lane rides the same
@@ -252,7 +333,7 @@ def _local_merge(data, n, lo, batch, vals=None, bvals=None):
     kcap = batch.shape[0]
     dev = data.device
     b_lo = torch.searchsorted(batch, lo)  # [S]
-    b_hi = torch.searchsorted(batch, _hi_bounds(lo))
+    b_hi = torch.searchsorted(batch, hi)
     n_mine = b_hi - b_lo
     j = torch.arange(kcap, device=dev)
     valid_b = j[None, :] < n_mine[:, None]
@@ -286,22 +367,23 @@ def make_insert_step(mesh: PoolMesh):
     batch_vals=None)`` merges a sorted, deduped, SENT-padded batch into
     every shard's key range.  A value lane on either side upgrades the
     other to unit values (the ``flat_ctree._aligned_vals`` semantics).
-    The batch is the step's one collective operand."""
-    from .traversal.sharded_backend import ShardedOps
-
-    ops = ShardedOps(mesh)
+    The batch is the step's one collective operand; each rank merges
+    into its own rows, between its rows' boundaries."""
+    ops = _ops(mesh)
 
     def step(pool: ShardedPool, batch: torch.Tensor,
              batch_vals: torch.Tensor | None = None) -> ShardedPool:
         batch = ops.all_gather(batch)
+        blk = mesh.block(pool.n_shards)
+        lo, hi = pool.lo[blk], _hi_bounds(pool.lo)[blk]
         if pool.vals is None and batch_vals is None:
-            out, n_new, _ = _local_merge(pool.data, pool.n, pool.lo, batch)
+            out, n_new, _ = _local_merge(pool.data, pool.n, lo, hi, batch)
             return ShardedPool(out, n_new, pool.lo)
         vals = pool.vals if pool.vals is not None else torch.ones(
             pool.data.shape, dtype=batch_vals.dtype, device=pool.device)
         bv = ops.all_gather(batch_vals) if batch_vals is not None else torch.ones(
             batch.shape, dtype=vals.dtype, device=batch.device)
-        out, n_new, vout = _local_merge(pool.data, pool.n, pool.lo, batch, vals, bv)
+        out, n_new, vout = _local_merge(pool.data, pool.n, lo, hi, batch, vals, bv)
         return ShardedPool(out, n_new, pool.lo, vout)
 
     return step
@@ -324,9 +406,7 @@ def _local_delete(data, n, batch, vals=None):
 def make_delete_step(mesh: PoolMesh):
     """Shard-local MultiDelete: ``step(pool, batch)`` (a dropped key drops
     its value-lane entry)."""
-    from .traversal.sharded_backend import ShardedOps
-
-    ops = ShardedOps(mesh)
+    ops = _ops(mesh)
 
     def step(pool: ShardedPool, batch: torch.Tensor) -> ShardedPool:
         out, n_new, vout = _local_delete(pool.data, pool.n, ops.all_gather(batch), pool.vals)
@@ -340,16 +420,23 @@ def make_delete_step(mesh: PoolMesh):
 # ---------------------------------------------------------------------------
 
 
-def member(p: ShardedPool, queries) -> torch.Tensor:
+def member(p: ShardedPool, queries, mesh: PoolMesh | None = None) -> torch.Tensor:
     """Shard id from the boundary table, then a LOCAL probe by flat index
     math: a binary search over ``data.reshape(-1)[s * cap + mid]`` —
     O(queries · log cap) scalar gathers, never a (queries, cap) row
-    gather."""
+    gather.  Under ranks each rank probes the queries its rows own and a
+    pmax merges the answers."""
     S, cap = p.data.shape
     q = (queries if torch.is_tensor(queries) else torch.from_numpy(np.asarray(queries))).to(
         p.device, torch.int64)
     flat = p.data.reshape(-1)
-    s = (torch.searchsorted(p.lo, q, right=True) - 1).clamp(0, S - 1)
+    s = torch.searchsorted(p.lo, q, right=True) - 1
+    if mesh is not None and mesh.size > 1:
+        r0 = mesh.block(p.n_shards).start
+        mine = (s >= r0) & (s < r0 + S)
+        hit = member(p._replace(lo=p.lo[r0: r0 + S]), q)
+        return _ops(mesh).pmax((hit & mine)[None])
+    s = s.clamp(0, S - 1)
     base = s * cap
     ns = p.n[s].to(torch.int64)
     lo = torch.zeros_like(q)
@@ -369,15 +456,20 @@ def needs_rebalance(p: ShardedPool, slack: float = 0.9) -> bool:
     return bool((p.n.cpu().numpy() >= slack * p.data.shape[1]).any())
 
 
-def rebalance(p: ShardedPool, cap_per: int | None = None) -> ShardedPool:
+def rebalance(p: ShardedPool, cap_per: int | None = None,
+              mesh: PoolMesh | None = None) -> ShardedPool:
     """O(m) redistribution to equal counts (the amortised compaction); the
-    value lane, when present, is preserved through the round trip."""
+    value lane, when present, is preserved through the round trip.  Under
+    ranks every rank gathers all rows, partitions them alike and keeps
+    its own block."""
+    g = gather_pool(p, mesh)
     return from_array(
-        to_array(p),
-        p.data.shape[0],
+        to_array(g),
+        p.n_shards,
         cap_per=p.data.shape[1] if cap_per is None else cap_per,
-        vals=to_val_array(p),
+        vals=to_val_array(g),
         device=p.device,
+        mesh=mesh,
     )
 
 
@@ -396,7 +488,7 @@ class ShardedGraph(NamedTuple):
 
     @property
     def n_shards(self) -> int:
-        return self.pool.data.shape[0]
+        return self.pool.n_shards
 
     @property
     def weighted(self) -> bool:
@@ -493,15 +585,20 @@ def graph_from_edges(
     weights: np.ndarray | None = None,
     cap_per: int | None = None,
     device=None,
+    mesh: PoolMesh | None = None,
 ) -> ShardedGraph:
     """Host build from a (k, 2) directed edge array (dedups; a duplicated
-    edge keeps the FIRST occurrence's weight)."""
+    edge keeps the FIRST occurrence's weight); with ``mesh``, this rank's
+    rows (default ``pool_mesh``: all rows on one rank)."""
     if n_shards is None:
         n_shards = default_n_shards()
+    if mesh is None:
+        mesh = pool_mesh(n_shards, device)
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     packed = (edges[:, 0] << 32) | edges[:, 1]
     w = None if weights is None else np.asarray(weights, np.float32).reshape(-1)
-    return ShardedGraph(from_array(packed, n_shards, cap_per=cap_per, vals=w, device=device), n)
+    return ShardedGraph(from_array(packed, n_shards, cap_per=cap_per, vals=w, device=device,
+                                   mesh=mesh), n)
 
 
 def graph_to_edge_array(sg: ShardedGraph) -> np.ndarray:
@@ -513,9 +610,12 @@ def graph_to_weight_array(sg: ShardedGraph) -> np.ndarray | None:
     return to_val_array(sg.pool)
 
 
-def graph_num_edges(sg) -> int:
-    """Global edge count of a ShardedGraph or CompressedShardedGraph."""
-    return int(sg.pool.n.sum())
+def graph_num_edges(sg, mesh: PoolMesh | None = None) -> int:
+    """Global edge count of a ShardedGraph or CompressedShardedGraph (a
+    psum of the ranks' counts under ranks)."""
+    if mesh is None or mesh.size == 1:
+        return int(sg.pool.n.sum())
+    return int(_ops(mesh).psum(sg.pool.n.long()))
 
 
 # ---------------------------------------------------------------------------
@@ -534,7 +634,8 @@ class CompressedShardedPool(NamedTuple):
     n       : int32[S] valid counts
     lo      : int64[S] inclusive lower key boundary per shard
     vals    : optional float32[S, cap] value lane, uncompressed (pad 0)
-    """
+
+    On a rank every leaf but ``lo`` holds its block's rows only."""
 
     offsets: torch.Tensor
     dst: cz.ChunkedStream
@@ -544,6 +645,10 @@ class CompressedShardedPool(NamedTuple):
 
     @property
     def n_shards(self) -> int:
+        return self.lo.shape[0]
+
+    @property
+    def rows(self) -> int:
         return self.offsets.shape[0]
 
     @property
@@ -618,31 +723,40 @@ def compress_sharded(
     width: int | None = None,
     k: int = cz.OVF_SLOTS,
     hi_headroom: float = 0.0,
+    mesh: PoolMesh | None = None,
 ) -> CompressedShardedGraph:
     """Checked build, mirroring ``flat_graph.compress_host``: the default
     is the ADAPTIVE layout (one int8 lane + a hi plane sized by the widest
     shard's wide-chunk count, plus ``hi_headroom`` slack rows for streaming
     growth); an explicit ``width`` (1 or 2) pins a fixed layout.  Raises
     ``ValueError`` if any shard row spills either way (keep the raw
-    layout)."""
+    layout).  Under ranks (``mesh``) the spill flag and the hi plane's
+    height are the all-rank ones, so every rank decides alike."""
+    ops = None if mesh is None or mesh.size == 1 else _ops(mesh)
+
+    def spilled(cp):
+        flag = cp.dst.spill.any()
+        return bool(flag if ops is None else ops.pmax(flag[None]))
+
     if width is None:
         cap = sg.pool.data.shape[1]
         R = (max(cap, 1) + cz.CHUNK - 1) // cz.CHUNK
         cp = compress_pool(sg.pool, sg.n, 0, k, R)
-        if bool(cp.dst.spill.any()):
+        if spilled(cp):
             raise ValueError(
                 f"sharded pool spills the k={k} escape lane even at "
                 "adaptive (int16-wide) chunks; keep the raw layout"
             )
         # exact-fit slice of the hi plane: one (S, H, CHUNK) leaf, so H is
         # the widest row's wide-chunk count (+ slack)
-        n_wide = int(cp.dst.wide.sum(dim=-1).max())
+        wide = cp.dst.wide.sum(dim=-1).max()
+        n_wide = int(wide if ops is None else ops.pmax(wide[None]))
         slack = 0 if hi_headroom <= 0 else max(4, int(np.ceil(hi_headroom * R)))
         hc = min(R, n_wide + slack)
         return CompressedShardedGraph(
             cp._replace(dst=cp.dst._replace(hi=cp.dst.hi[:, :hc].clone())), sg.n)
     cp = compress_pool(sg.pool, sg.n, width, k)
-    if bool(cp.dst.spill.any()):
+    if spilled(cp):
         raise ValueError(
             f"sharded pool spills the k={k} escape lane at the requested "
             "fixed width; keep the raw layout"
@@ -696,10 +810,11 @@ def needs_rebalance_compressed(cp: CompressedShardedPool, slack: float = 0.9) ->
 
 
 def rebalance_compressed(cp: CompressedShardedPool, n: int,
-                         cap_per: int | None = None) -> CompressedShardedPool:
+                         cap_per: int | None = None,
+                         mesh: PoolMesh | None = None) -> CompressedShardedPool:
     """Host-side O(m) redistribution (decompress -> rebalance ->
     recompress).  Only sound on streams that did not spill."""
-    p = rebalance(decompress_pool(cp), cap_per=cap_per)
+    p = rebalance(decompress_pool(cp), cap_per=cap_per, mesh=mesh)
     hi_cap = None
     if cp.dst.adaptive:
         # capacity may have grown: bound the plane by the new row capacity,
@@ -734,15 +849,20 @@ def imbalance_stats(p) -> dict:
 
 def recommend_n_shards(m_total: int, target_per_shard: int = 1 << 16) -> int:
     """Shard-count hint: enough shards for ~``target_per_shard`` edges
-    each (the reference also rounds up to a multiple of its device count,
-    which is 1 here)."""
-    return max(1, -(-int(m_total) // int(target_per_shard)))
+    each, rounded up to a multiple of the rank count (the reference's
+    device count) when more than one round is needed."""
+    k = _world()[0]
+    want = max(1, -(-int(m_total) // int(target_per_shard)))
+    return want if want <= k else -(-want // k) * k
 
 
-def should_rebalance(p, *, imbalance_threshold: float = 2.0, slack: float = 0.9) -> bool:
+def should_rebalance(p, *, imbalance_threshold: float = 2.0, slack: float = 0.9,
+                     counts=None) -> bool:
     """Auto-rebalance trigger: a shard nears capacity, OR max / mean
-    occupancy exceeds ``imbalance_threshold``.  Works on both layouts."""
-    counts = _counts(p)
+    occupancy exceeds ``imbalance_threshold``.  Works on both layouts;
+    ``counts`` (all S rows, ``shard_counts``) stands in for the pool's
+    own on a rank."""
+    counts = _counts(p if counts is None else counts)
     near_cap = bool((counts >= slack * p.cap_per).any())
     return near_cap or imbalance_stats(counts)["imbalance"] > imbalance_threshold
 

@@ -18,6 +18,15 @@ mirror.  ``mirror="sharded"`` keeps a range-sharded ``ShardedGraph``
 ``engine("sharded")``; ``mirror=False`` keeps none, and each version's
 engine is rebuilt from its tree snapshot.
 
+Under a ``torch.distributed`` process group (``launch.mesh.init_ranks``)
+a sharded stream is one process per rank: each rank keeps its own copy
+of the host C-tree and applies the same batches in the same order, and
+holds its block of the shard rows (``sharded_pool.PoolMesh``), merged
+locally; ``engine("sharded")`` and ``query_batch`` then run on every
+rank together, their merges as collectives.  That is multi-controller
+SPMD, the counterpart of the reference's single controller driving a
+device mesh; every rank must call the same methods in the same order.
+
 Incremental queries: every edge publish records its batch as a
 ``versioning.Delta`` in the version's aux, and ``stream.subscribe(kind,
 ...)`` returns a ``Subscription`` whose ``refresh()`` advances a
@@ -217,7 +226,7 @@ class AspenStream:
         self.rebalances = 0  # sharded mirrors redistributed by the capacity policy
         if kind == SHARDED_MIRROR:
             self._n_shards = n_shards if n_shards is not None else sp.default_n_shards()
-            mesh = sp.pool_mesh(self._n_shards, self.device)
+            self._mesh = mesh = sp.pool_mesh(self._n_shards, self.device)
             # the update steps, built once per stream
             if compressed:
                 self._s_insert = sp.make_insert_step_compressed(mesh)
@@ -276,8 +285,10 @@ class AspenStream:
         if self._mirror_kind == SHARDED_MIRROR:
             from .traversal import sharded_graph_of_flat
 
-            sg = sharded_graph_of_flat(flat, self._n_shards)
-            return sp.compress_sharded(sg, hi_headroom=HI_HEADROOM) if self._compressed else sg
+            sg = sharded_graph_of_flat(flat, self._n_shards, mesh=self._mesh)
+            if self._compressed:
+                return sp.compress_sharded(sg, hi_headroom=HI_HEADROOM, mesh=self._mesh)
+            return sg
         if self._compressed:
             return fg.compress_host(flat, hi_headroom=HI_HEADROOM)
         return flat
@@ -340,26 +351,32 @@ class AspenStream:
         compaction) at a grown per-shard capacity, and when
         ``should_rebalance`` sees a shard near capacity or the counts
         skewed, at the same capacity.  A weighted batch against an
-        unweighted mirror upgrades the pool to unit values."""
+        unweighted mirror upgrades the pool to unit values.  Under ranks
+        the counts are all S rows' (one gather of S ints), every rank
+        reaches the same decision from them, and one scalar all-reduce
+        checks that it did."""
         if edges.shape[0] == 0:
             return mirror
         pool = mirror.pool
+        mesh = self._mesh
         compressed = isinstance(pool, sp.CompressedShardedPool)
         batch = self._device_batch(edges, weights)
-        counts = pool.n.cpu().numpy()
+        counts = sp.shard_counts(pool, mesh)
         k = int(edges.shape[0])
         n_out = max(mirror.n, int(edges[:, 0].max()) + 1)
         if weights is not None and pool.vals is None:
-            pool = pool._replace(vals=torch.ones((pool.n_shards, pool.cap_per),
+            pool = pool._replace(vals=torch.ones((pool.rows, pool.cap_per),
                                                  dtype=torch.float32, device=self.device))
         cap_per = pool.cap_per
         grow = int(counts.max()) + k > cap_per
-        if grow or sp.should_rebalance(pool):
-            per = -(-int(counts.sum()) // self._n_shards)
-            cap = max(cap_per, fct.grown_capacity(per + k)) if grow else None
+        rebalance = grow or sp.should_rebalance(pool, counts=counts)
+        per = -(-int(counts.sum()) // self._n_shards)
+        cap = max(cap_per, fct.grown_capacity(per + k)) if grow else None
+        sp.assert_same_decision(mesh, rebalance, cap or 0, n_out, k)
+        if rebalance:
             self.rebalances += 1
-            pool = (sp.rebalance_compressed(pool, mirror.n, cap_per=cap) if compressed
-                    else sp.rebalance(pool, cap_per=cap))
+            pool = (sp.rebalance_compressed(pool, mirror.n, cap_per=cap, mesh=mesh) if compressed
+                    else sp.rebalance(pool, cap_per=cap, mesh=mesh))
         if compressed:
             return sp.CompressedShardedGraph(
                 self._s_insert(pool, batch.data, batch.vals, n=n_out), n_out)
@@ -393,7 +410,10 @@ class AspenStream:
         if isinstance(m, fg.CompressedPool):
             spilled = bool(m.dst.spill)
         elif isinstance(m, sp.CompressedShardedGraph):
-            spilled = bool(m.pool.dst.spill.any())
+            # any rank's spill: every rank rebuilds together
+            from .traversal.sharded_backend import ShardedOps
+
+            spilled = bool(ShardedOps(self._mesh).pmax(m.pool.dst.spill.any()[None]))
         else:
             return m
         if not spilled:
@@ -501,7 +521,8 @@ class AspenStream:
         """The current version's ShardedGraph: the resident sharded mirror
         (a compressed one is decompressed on the way out), or, on other
         streams, a one-off partition of the flat mirror (or of a rebuild
-        from the tree)."""
+        from the tree).  Under ranks, this rank's block of rows
+        (``sharded_pool.gather_pool`` puts all of them together)."""
         from .traversal import sharded_graph_of_flat
 
         v = self.acquire()
@@ -530,10 +551,10 @@ class AspenStream:
             if m is None:
                 return None
             pool = m.pool
-            counts = pool.n.cpu().numpy()
+            counts = sp.shard_counts(pool, self._mesh)
             stats = sp.imbalance_stats(counts)
             stats["n_shards"] = pool.n_shards
-            stats["should_rebalance"] = sp.should_rebalance(pool)
+            stats["should_rebalance"] = sp.should_rebalance(pool, counts=counts)
             stats["recommended_n_shards"] = sp.recommend_n_shards(int(counts.sum()))
             return stats
         finally:

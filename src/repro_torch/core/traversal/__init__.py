@@ -120,17 +120,22 @@ def make_engine(obj, backend: str | None = None, device=None) -> TraversalEngine
     return engine_of(obj)
 
 
-def sharded_graph_of_flat(g, n_shards: int | None = None):
+def sharded_graph_of_flat(g, n_shards: int | None = None, mesh=None):
     """FlatGraph -> ShardedGraph: range-partition the sorted packed-key
     pool (and its value lane) into ``n_shards`` rows (``None`` =
     ``sharded_pool.default_n_shards()``), on the graph's own device with
-    no host round trip of the keys.  O(m); streams keep a resident sharded
-    mirror so queries never pay this per version."""
-    from ..sharded_pool import ShardedGraph, default_n_shards, from_sorted_device
+    no host round trip of the keys, keeping ``mesh``'s block of rows
+    (default ``pool_mesh``: every row on one rank, this rank's block under
+    a process group).  O(m); streams keep a resident sharded mirror so
+    queries never pay this per version."""
+    from ..sharded_pool import ShardedGraph, default_n_shards, from_sorted_device, pool_mesh
 
     if n_shards is None:
         n_shards = default_n_shards()
-    return ShardedGraph(from_sorted_device(g.keys, int(g.m), n_shards, g.weights), g.n)
+    if mesh is None:
+        mesh = pool_mesh(n_shards, g.keys.device)
+    return ShardedGraph(from_sorted_device(g.keys, int(g.m), n_shards, g.weights, mesh=mesh),
+                        g.n)
 
 
 def flat_graph_of(snap, device=None):

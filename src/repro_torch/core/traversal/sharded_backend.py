@@ -7,15 +7,21 @@ never leaves its shard row, and the only cross-shard traffic of an
 edgeMap round is vertex-state sized (O(n) words, never O(pool) edges).
 
 The reference runs each step as an explicit ``shard_map`` over a device
-mesh.  This port runs the one-device form the reference's tier-1 tests
-use: every shard row on one card, each shard's partial result laid out
-along a leading ``[S, ...]`` axis, and ``ShardedOps``' collectives
+mesh.  The port runs it on ranks (``sharded_pool.PoolMesh``): each rank
+holds a block of ``S / k`` shard rows, each row's partial result laid out
+along a leading ``[S/k, ...]`` axis, and ``ShardedOps``' collectives
 (``psum``, ``pmax``, ``pmin``, ``psum_scatter``, ``all_gather``) reduce
-over that axis.  They are the only cross-shard points of the port, and
-each logs its per-shard operand bytes (``collective_log``), which stands
-in for the reference's jaxpr walker ``collective_operand_bytes``.  Ranks
-across several GPUs would replace those reductions with
-``torch.distributed`` calls in that one class (ROADMAP.md item 16).
+over that axis first, then across the ranks with ``torch.distributed``
+(``all_reduce``, ``reduce_scatter_tensor``, ``all_gather_into_tensor``).
+One rank with no process group holds every row and stops at the local
+reduction (the one-device form the reference's tier-1 tests use).  They
+are the only cross-shard points of the port, and each logs the bytes of
+the operand each rank sends (``collective_log``), which stands in for
+the reference's jaxpr walker ``collective_operand_bytes``.  Ranks run as
+processes of one ``torch.distributed`` group (``launch.mesh.init_ranks``:
+NCCL on the card, gloo on the host, where gloo has no CUDA form of a
+collective it goes through host memory, ``HOST_COPIED``); ROADMAP.md
+item 16's first half.
 
 How arbitrary F/C callbacks stay correct across shards: every state
 write of an F callback goes through the masked ``ops.scatter_*``
@@ -95,6 +101,8 @@ AXIS = "shard"
 
 _LOG_LOCK = threading.Lock()
 _LOGS: List[list] = []
+# collectives that went through host memory: gloo has no CUDA form of them
+HOST_COPIED: set = set()
 
 
 @contextmanager
@@ -124,16 +132,66 @@ def _neutral(dtype, how: str):
     return info.min if how == "amax" else info.max
 
 
+# the collectives gloo runs on CUDA tensors; the rest go through host memory
+_GLOO_CUDA = ("all_reduce",)
+
+
+def _dist_call(name: str, fn, out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+    """``fn(out, inp)``, a ``torch.distributed`` collective, on the
+    tensors' device; under gloo, which has a CUDA form of its all-reduce
+    only (and not for every dtype), a CUDA gather or reduce-scatter, or
+    an all-reduce it refuses, goes through host copies (recorded in
+    ``HOST_COPIED``).  Every rank runs the same call on the
+    same dtype and device, so all take the same route."""
+    import warnings
+
+    import torch.distributed as dist
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)  # *_into_tensor / *_tensor names
+        if not inp.is_cuda or dist.get_backend() != "gloo":
+            fn(out, inp)
+            return out
+        if name.startswith(_GLOO_CUDA) and name not in HOST_COPIED:
+            try:
+                fn(out, inp)
+                return out
+            except RuntimeError:  # a dtype its CUDA all-reduce lacks: every rank alike
+                pass
+        HOST_COPIED.add(name)
+        h_out = out.cpu()
+        fn(h_out, inp.cpu())
+        return out.copy_(h_out)
+
+
+def _all_reduce(t: torch.Tensor, how: str) -> torch.Tensor:
+    """``t`` all-reduced across the ranks (``how``: sum, max or min); a
+    boolean goes as ``uint8`` (max is or, min is and)."""
+    import torch.distributed as dist
+
+    op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[how]
+    x = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()  # a fresh reduction
+    x = _dist_call(f"all_reduce_{how}", lambda o, i: dist.all_reduce(o, op=op), x, x)
+    return x.bool() if t.dtype == torch.bool else x
+
+
+def _padded(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x`` with its first dim padded with zeros to a multiple of ``k``."""
+    pad = -x.shape[0] % k
+    return x if not pad else torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
 class ShardedOps(TorchOps):
     """``TorchOps`` whose scatter helpers merge across the shard axis, and
     the port's only collective points.
 
-    A collective takes the shards' partials stacked on a leading ``[S,
-    ...]`` axis and returns the merged value every shard then holds.  On
-    one rank (``mesh.size == 1``) that is a reduction over the local
-    rows.  The scatter helpers need each edge lane's shard: an engine
-    binds it with ``with_lanes`` before calling F (an int L: lane ``i``
-    is in shard ``i // L``; or a tensor of shard ids)."""
+    A collective takes this rank's rows' partials stacked on a leading
+    ``[S/k, ...]`` axis and returns the merged value every shard then
+    holds: a reduction over the local rows, then one ``torch.distributed``
+    collective across the ranks (none on one rank).  The scatter helpers
+    need each edge lane's shard: an engine binds it with ``with_lanes``
+    before calling F (an int L: lane ``i`` is in local row ``i // L``; or
+    a tensor of local row ids)."""
 
     def __init__(self, mesh: PoolMesh, n_shards: int = 1, lanes=None):
         super().__init__(mesh.device)
@@ -152,28 +210,80 @@ class ShardedOps(TorchOps):
             for log in _LOGS:
                 log.append((name, nbytes))
 
+    @property
+    def _ranks(self) -> bool:
+        return self.mesh.distributed
+
     def psum(self, parts: torch.Tensor) -> torch.Tensor:
         self._log("psum", parts[0])
-        return parts.sum(0, dtype=parts.dtype) if parts.dtype != torch.bool else parts.any(0)
+        local = parts.sum(0, dtype=parts.dtype) if parts.dtype != torch.bool else parts.any(0)
+        return _all_reduce(local, "sum" if parts.dtype != torch.bool else "max") \
+            if self._ranks else local
 
     def pmax(self, parts: torch.Tensor) -> torch.Tensor:
         self._log("pmax", parts[0])
-        return parts.any(0) if parts.dtype == torch.bool else parts.amax(0)
+        local = parts.any(0) if parts.dtype == torch.bool else parts.amax(0)
+        return _all_reduce(local, "max") if self._ranks else local
 
     def pmin(self, parts: torch.Tensor) -> torch.Tensor:
         self._log("pmin", parts[0])
-        return parts.all(0) if parts.dtype == torch.bool else parts.amin(0)
+        local = parts.all(0) if parts.dtype == torch.bool else parts.amin(0)
+        return _all_reduce(local, "min") if self._ranks else local
 
     def psum_scatter(self, parts: torch.Tensor) -> torch.Tensor:
-        """Sum over shards, each rank keeping its chunk of the vertex
-        axis; one rank keeps every chunk."""
+        """Sum over shards: a ``reduce_scatter_tensor`` of the local sum
+        on the vertex axis (padded to a multiple of the rank count), each
+        rank keeping its chunk, then the chunks' ``all_gather_into_tensor``
+        (the reference's ``P('shard')`` result, gathered where it is
+        read).  One rank keeps every chunk."""
+        import torch.distributed as dist
+
         self._log("psum_scatter", parts[0])
-        return parts.sum(0, dtype=parts.dtype)
+        local = parts.sum(0, dtype=parts.dtype)
+        if not self._ranks:
+            return local
+        k, n = self.mesh.size, local.shape[0]
+        full = _padded(local, k).contiguous()
+        chunk = full.new_empty((full.shape[0] // k,) + tuple(full.shape[1:]))
+        chunk = _dist_call("reduce_scatter_tensor", dist.reduce_scatter_tensor, chunk, full)
+        return _dist_call("all_gather_into_tensor", dist.all_gather_into_tensor,
+                          torch.empty_like(full), chunk)[:n]
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every shard receives ``x`` (the update step's batch)."""
+        """Every shard receives ``x`` (the update step's batch): each rank
+        sends its 1/k of it and ``all_gather_into_tensor`` puts the whole
+        together on every rank."""
+        import torch.distributed as dist
+
         self._log("all_gather", x)
-        return x
+        if not self._ranks:
+            return x
+        k, r, n = self.mesh.size, self.mesh.rank, x.shape[0]
+        full = _padded(x, k)
+        c = full.shape[0] // k
+        return _dist_call("all_gather_into_tensor", dist.all_gather_into_tensor,
+                          torch.empty_like(full), full[r * c:(r + 1) * c].contiguous())[:n]
+
+    def gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """All ranks' rows ``[S/k, ...]`` as ``[S, ...]`` on every rank
+        (O(pool): the rebalance's compaction and the checks only)."""
+        import torch.distributed as dist
+
+        self._log("gather_rows", rows)
+        if not self._ranks:
+            return rows
+        x = rows.contiguous()
+        out = x.new_empty((x.shape[0] * self.mesh.size,) + tuple(x.shape[1:]))
+        return _dist_call("all_gather_into_tensor", dist.all_gather_into_tensor, out, x)
+
+    def same_on_every_rank(self, h: int) -> bool:
+        """Whether every rank passed the same int ``h`` (< 2^40): one
+        scalar all-reduce SUM, each rank checking it is k times its own."""
+        self._log("policy_check", torch.zeros((), dtype=torch.int64))
+        if not self._ranks:
+            return True
+        total = _all_reduce(torch.tensor(h, dtype=torch.int64, device=self.device), "sum")
+        return int(total) == self.mesh.size * h
 
     # -- masked scatters, merged by one collective each ----------------------
     def _positions(self, idx: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -349,10 +459,10 @@ class ShardedEngine(TraversalEngine):
         self.sg = sg
         self.mesh = pool_mesh(sg.n_shards, sg.device) if mesh is None else mesh
         self._check_mesh(sg.n_shards)
-        self.ops = ShardedOps(self.mesh, sg.n_shards)
+        self.ops = ShardedOps(self.mesh, sg.pool.rows)
         aux = shard_aux(sg.pool, sg.n, self.ops) if aux is None else aux
-        self._setup(sg.n, graph_num_edges(sg), sg.n_shards, sg.pool.cap_per, sg.pool,
-                    aux.offsets, aux.dst_offsets)
+        self._setup(sg.n, graph_num_edges(sg, self.mesh), sg.n_shards, sg.pool.cap_per,
+                    sg.pool, aux.offsets, aux.dst_offsets)
         self.aux = _trim(aux, self._width)
 
     def _check_mesh(self, n_shards: int) -> None:
@@ -361,7 +471,9 @@ class ShardedEngine(TraversalEngine):
                              f"size {self.mesh.shape[AXIS]}")
 
     def _setup(self, n, m, S, cap, pool, offsets, dst_offsets) -> None:
-        self._n, self._m, self._S, self._cap = n, m, S, cap
+        """``S`` is the global shard count; ``self._S`` this rank's rows."""
+        self._n, self._m, self._S, self._cap = n, m, offsets.shape[0], cap
+        self._S_total = S
         # each row's live lanes and key range, src-major and dst-major (one
         # host read per version): the per-shard launches skip pad lanes and
         # the empty rows outside a shard's range
@@ -372,11 +484,14 @@ class ShardedEngine(TraversalEngine):
         self._width = min(cap, max(1, -(-max(plan[0]) // cz.CHUNK)) * cz.CHUNK)
         self.device = pool.device
         self._wdeg = None  # lazy weighted out-degree cache
-        # the expansion's global ranks: one vertex-sized psum per version
-        self._goff = self.ops.psum(offsets.long())
+        # the expansion's edge ranks over this rank's rows: each rank
+        # expands the frontier's out-edges it holds, and the scatters'
+        # collectives merge the ranks' lanes
+        self._goff = offsets.long().sum(0)
         self._cum_n = torch.cat([pool.n.new_zeros(1), torch.cumsum(pool.n, 0)]).long()
         # static sparse budgets: a frontier routed sparse obeys
-        # |U| + deg(U) <= m/20 <= S*cap/20 (all shards together)
+        # |U| + deg(U) <= m/20 <= S*cap/20 (all shards together, so a
+        # rank's share of deg(U) fits too)
         total = S * cap
         self._auto_ids_budget = min(n, _round_up(total // DENSE_THRESHOLD_DENOM + 1, 64))
         self._auto_edge_budget = min(total, _round_up(total // DENSE_THRESHOLD_DENOM + 1, 64))
@@ -397,7 +512,7 @@ class ShardedEngine(TraversalEngine):
 
     @property
     def n_shards(self) -> int:
-        return self._S
+        return self._S_total
 
     @property
     def degrees(self) -> torch.Tensor:
@@ -749,8 +864,10 @@ def _inflate_sharded(cp: CompressedShardedPool, caux: CompressedShardAux, n: int
     ))
 
 
-def _any_spilled(*streams: cz.ChunkedStream) -> bool:
-    return bool(torch.stack([s.spill.any() for s in streams]).any())
+def _any_spilled(ops: ShardedOps, *streams: cz.ChunkedStream) -> bool:
+    """Whether a stream spilled on any row of any rank (every rank then
+    takes the same branch)."""
+    return bool(ops.pmax(torch.stack([s.spill.any() for s in streams]).any()[None]))
 
 
 class CompressedShardedEngine(ShardedEngine):
@@ -768,23 +885,23 @@ class CompressedShardedEngine(ShardedEngine):
         self.csg = csg
         self.mesh = pool_mesh(csg.n_shards, csg.device) if mesh is None else mesh
         self._check_mesh(csg.n_shards)
-        self.ops = ShardedOps(self.mesh, csg.n_shards)
+        self.ops = ShardedOps(self.mesh, csg.pool.rows)
         self.caux = shard_aux_compressed(csg.pool, csg.n, ops=self.ops) if aux is None else aux
         # one read of the flags at construction: a spilled stream would
         # mis-decode every query
-        pool_spilled = _any_spilled(csg.pool.dst)
-        aux_spilled = _any_spilled(self.caux.dst_sorted_c, self.caux.srcbd_c)
+        pool_spilled = _any_spilled(self.ops, csg.pool.dst)
+        aux_spilled = _any_spilled(self.ops, self.caux.dst_sorted_c, self.caux.srcbd_c)
         if not pool_spilled and aux_spilled and aux is None and csg.pool.dst.adaptive:
             # the adaptive aux lanes inherited the pool's exact-fit hi
             # capacity but need more wide chunks: retry once at full capacity
             R = csg.pool.dst.deltas.shape[-2]
             self.caux = shard_aux_compressed(csg.pool, csg.n, R, ops=self.ops)
-            aux_spilled = _any_spilled(self.caux.dst_sorted_c, self.caux.srcbd_c)
+            aux_spilled = _any_spilled(self.ops, self.caux.dst_sorted_c, self.caux.srcbd_c)
         if pool_spilled or aux_spilled:
             raise ValueError("compressed sharded stream spilled its escape lane; "
                              "rebuild with a wider delta lane or keep the raw engine")
-        self._setup(csg.n, graph_num_edges(csg), csg.n_shards, csg.pool.cap_per, csg.pool,
-                    csg.pool.offsets, self.caux.dst_offsets)
+        self._setup(csg.n, graph_num_edges(csg, self.mesh), csg.n_shards, csg.pool.cap_per,
+                    csg.pool, csg.pool.offsets, self.caux.dst_offsets)
 
     def _views(self) -> _Views:
         return _inflate_sharded(self.csg.pool, self.caux, self._n, self._width)

@@ -544,7 +544,8 @@ def build_cell(arch_id: str, shape_name: str, mesh, reduced: bool = False,
     ``DeviceMesh`` or any object with an axis-name -> size ``shape``).
     ``overrides`` replace LM config fields; ``moe_shard_dispatch`` and
     ``moe_dispatch_shards`` reach the MoE fields, and
-    ``moe_impl="shardmap"`` raises (ranks across GPUs, ROADMAP item 16)."""
+    ``moe_impl="shardmap"`` sets ``models.moe_shardmap.ACTIVE_MESH`` to
+    ``mesh``, as the reference's cells do."""
     spec = registry.get(arch_id)
     cfg = spec.reduced if reduced else spec.full
     if n_layers_override is not None and spec.family == "lm":
@@ -563,6 +564,11 @@ def build_cell(arch_id: str, shape_name: str, mesh, reduced: bool = False,
                 cfg = dataclasses.replace(
                     cfg, moe=dataclasses.replace(cfg.moe, dispatch_shards=ns)
                 )
+        if overrides.pop("moe_impl", None) == "shardmap":
+            from ..models import moe_shardmap as MS
+
+            MS.ACTIVE_MESH = mesh
+            cfg = dataclasses.replace(cfg, moe_impl="shardmap")
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
     shape = spec.shapes[shape_name]

@@ -39,6 +39,32 @@ Bytes are counted per op (each op's tensor inputs read and outputs
 written; a gather reads only the rows it returns; views move nothing),
 with no fusion, so they bound XLA's fused count from above.
 
+FLOPs follow XLA's cost analysis: matrix products, convolutions and
+attention by torch's ``flop_registry``; a pointwise op one FLOP per
+output element and a reduction one per input element, as
+``HloCostAnalysis`` counts elementwise and reduce instructions; a
+scatter that combines (an add, a max) one per update element.
+Transcendentals (``exp``, ``log``, ``tanh``, ``sqrt``, ``pow``, the
+sigmoid and its kin) are left out, as XLA counts them apart from its
+FLOPs, and so are copies and fills, which XLA does not count.
+
+Two layouts follow GSPMD where DTensor's differ:
+
+  * a scatter from updates sharded along the entries into a target
+    replicated on that mesh dim (``index_put`` with or without
+    ``accumulate``, ``index_add``, ``scatter_add``, ``scatter_reduce``)
+    runs as a local scatter on each rank, whose result is a partial, and
+    one all-reduce of the target: SUM for an add, MAX for a max or a set
+    of a boolean target (the cells set True), MIN for a min.  GSPMD
+    partitions such a scatter the same way and never gathers its
+    indices or values (``_scatter_partial``).  A plain set whose values
+    differ per entry goes as a sum of each rank's changes, exact only
+    where no two entries meet, as in the reference;
+  * a softmax over a sharded dim runs as a local max, an all-reduce MAX
+    of it, a local sum of the exponentials and an all-reduce SUM of the
+    sums, which is how GSPMD partitions its reduce instructions; the
+    scores are never gathered (``_sharded_softmax``).
+
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out dryrun.jsonl
 """
@@ -52,7 +78,7 @@ import re
 import sys
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -94,11 +120,9 @@ def _register_strategies():
       the result alike), the index tensors replicated;
     * a gather (``index``) from a replicated source follows the
       sharding of its index;
-    * an add- or max-combining scatter (``index_add``, ``index_put``
-      with ``accumulate``, ``scatter_reduce`` "sum"/"amax"/"amin" with
-      ``include_self``) of sharded updates into a partial target gives a
-      partial result, reduced where it is next read: the all-reduce
-      GSPMD emits for a scatter whose updates are sharded;
+    * a scatter of updates sharded along their entries into a target
+      replicated over that mesh dim does not reach these rules: it runs
+      as ``CostMode._scatter_partial``;
     * ``gather`` along a dim that is not sharded keeps the common
       sharding of its source and index (along a sharded one:
       ``CostMode._masked_gather``);
@@ -112,7 +136,7 @@ def _register_strategies():
     global _REGISTERED
     if _REGISTERED:
         return
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
     aten = torch.ops.aten
@@ -130,20 +154,15 @@ def _register_strategies():
     def _index_add(self, dim, index, source, alpha=1):
         nd = len(_shape(self))
         dim %= nd
-        out = [([R], [R, None, R, R]), ([Partial()], [Partial(), None, Shard(0), Shard(dim)])]
+        out = [([R], [R, None, R, R])]
         out += [([Shard(d)], [Shard(d), None, R, Shard(d)]) for d in range(nd) if d != dim]
         return out
-
-    partial_of = {"sum": "sum", "amax": "max", "amin": "min"}
 
     @register_sharding([aten.scatter_reduce.two, aten.scatter_reduce_.two])
     def _scatter_reduce(self, dim, index, src, reduce, include_self=True):
         nd = len(_shape(self))
         dim %= nd
         out = [([R], [R, None, R, R, None, None])]
-        if include_self and reduce in partial_of:
-            p = Partial(partial_of[reduce])
-            out.append(([p], [p, None, Shard(dim), Shard(dim), None, None]))
         same = _shape(index) == _shape(src) == _shape(self)
         out += [([Shard(d)], [Shard(d), None, Shard(d), Shard(d), None, None])
                 for d in range(nd) if d != dim and same]
@@ -190,11 +209,6 @@ def _register_strategies():
             vd = o - (b_nd + len(non_idx) - len(v_shape))
             v = Shard(vd) if vd >= 0 and v_shape[vd] > 1 else R
             out.append(([Shard(d)], [Shard(d)] + [R] * n_i + [v] + tail))
-        if accumulate and at == 0:
-            # the embedding's backward: updates sharded with their indices
-            lead = [Shard(0) if len(s) == len(idx[0]) and s[0] > 1 else R for s in idx]
-            if all(isinstance(p, Shard) for p in lead) and len(v_shape) >= 1:
-                out.append(([Partial()], [Partial()] + lead + [Shard(0)] + tail))
         return out
 
     @register_sharding(aten.gather.default)
@@ -282,6 +296,11 @@ class CostMode(TorchDispatchMode):
             if func._opname == "gather" and _sharded_on_indexed(
                     args[0], [None] * (args[1] % args[0].ndim) + [args[2]]):
                 return self._masked_gather(func, args, kwargs)
+            plan = _scatter_plan(func, args, kwargs)
+            if plan is not None:
+                return self._scatter_partial(func, args, kwargs, plan)
+            if func._opname == "_softmax" and _sharded_on_dim(args[0], args[1]):
+                return self._sharded_softmax(func, args, kwargs)
             return self._on_dtensors(func, args, kwargs)
         out = func(*args, **kwargs)
         if any(t is not torch.Tensor and t is not torch.nn.Parameter for t in types):
@@ -296,9 +315,7 @@ class CostMode(TorchDispatchMode):
             return out
         if func._opname in _FREE_OPS or func.is_view:
             return out
-        packet = func._overloadpacket
-        if packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
+        self.flops += _flops(func, args, kwargs, ins, outs, out)
         if func._opname in _GATHER_OPS:
             # a gather reads the rows it returns, not its whole source
             moved = 2 * sum(_nbytes(t) for t in outs) + sum(_nbytes(t) for t in ins[1:])
@@ -395,10 +412,12 @@ class CostMode(TorchDispatchMode):
                     out = torch.where(mask, local[_as_key(li)], 0)
                     rest = [x.shape[d] for d in range(x.ndim) if d not in idx_dims]
                     shape = tuple(rest[:at]) + b_shape + tuple(rest[at:])
-                    res = DTensor.from_local(out, mesh, out_pl, run_check=False, shape=shape,
+                    out = self._all_reduce(out, mesh, [i for i, p in enumerate(out_pl)
+                                                       if p.is_partial()], "sum")
+                    res = DTensor.from_local(out, mesh, [Replicate() if p.is_partial() else p
+                                                         for p in out_pl],
+                                             run_check=False, shape=shape,
                                              stride=_contiguous_stride(shape))
-                    res = res.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                                  for p in out_pl])
                 else:
                     v = args[2]
                     if isinstance(v, DTensor):
@@ -448,9 +467,107 @@ class CostMode(TorchDispatchMode):
                 out = torch.where(ok, torch.gather(x.to_local(), dim, li), 0)
                 shape = tuple(args[2].shape)
                 self.masked["gather"] = self.masked.get("gather", 0) + 1
-                res = DTensor.from_local(out, mesh, out_pl, run_check=False, shape=shape,
-                                         stride=_contiguous_stride(shape))
-                return res.redistribute(mesh, idx_pl)
+                out = self._all_reduce(out, mesh, [i for i, p in enumerate(out_pl)
+                                                   if p.is_partial()], "sum")
+                return DTensor.from_local(out, mesh, idx_pl, run_check=False, shape=shape,
+                                          stride=_contiguous_stride(shape))
+        finally:
+            self._depth -= 1
+
+    def _all_reduce(self, t, mesh, dims, how: str):
+        """``t`` all-reduced (``how``: sum, max or min) over the mesh dims
+        ``dims``: one collective over the whole world where they are every
+        dim of a mesh that spans it, else one per mesh dim.  A boolean
+        goes as ``uint8``."""
+        from torch.distributed import _functional_collectives as funcol
+
+        dtype = t.dtype
+        if dtype == torch.bool:
+            t = t.to(torch.uint8)
+        if len(dims) == mesh.ndim and mesh.size() == dist.get_world_size():
+            groups = [dist.group.WORLD]
+        else:
+            groups = [mesh.get_group(d) for d in dims]
+        for g in groups:
+            t = funcol.wait_tensor(funcol.all_reduce(t, how, g))
+        return t.to(dtype)
+
+    def _scatter_partial(self, func, args, kwargs, plan):
+        """A scatter whose updates are sharded along their entries over a
+        mesh dim that replicates its target: each rank scatters its own
+        entries into a partial of the target, and one all-reduce over
+        those mesh dims merges the partials (SUM, MAX or MIN, by
+        ``plan.how``; a plain set as the sum of each rank's changes).
+        Over a mesh dim that shards the target along a dim it does not
+        index, the updates follow that shard and the indices are
+        replicated.  The target keeps its layout; an in-place op writes
+        its local block."""
+        from torch.distributed.tensor import DTensor
+
+        self._depth += 1
+        try:
+            with self:
+                x = args[0]
+                mesh = x.device_mesh
+                new = list(args)
+                for pos, pl in plan.moves:
+                    a = new[pos]
+                    if isinstance(a, (list, tuple)):
+                        new[pos] = [t if t is None or p is None else _local_as(t, mesh, p)
+                                    for t, p in zip(a, pl)]
+                    else:
+                        new[pos] = _local_as(a, mesh, pl)
+                local = x.to_local()
+                if func._opname == "_index_put_impl_":
+                    op, new = torch.ops.aten.index_put.default, new[:4]
+                else:
+                    op = getattr(getattr(torch.ops.aten, func._opname.rstrip("_")),
+                                 func._overloadname)
+                if plan.how == "set":
+                    idx = new[1]
+                    delta = torch.as_tensor(new[2], device=local.device).to(local.dtype) \
+                        - local[_as_key(idx)]
+                    part = torch.zeros_like(local).index_put_(tuple(idx), delta)
+                elif plan.how == "sum":
+                    part = op(torch.zeros_like(local), *new[1:], **kwargs)
+                else:
+                    part = op(local.clone(), *new[1:], **kwargs)
+                merged = self._all_reduce(part, mesh, plan.dims,
+                                          "sum" if plan.how == "set" else plan.how)
+                res = local + merged if plan.how in ("sum", "set") else merged
+                self.masked["scatter_partial"] = self.masked.get("scatter_partial", 0) + 1
+                if func._opname.endswith("_"):
+                    local.copy_(res)
+                    return x
+                return DTensor.from_local(res, mesh, x.placements, run_check=False,
+                                          shape=x.shape, stride=x.stride())
+        finally:
+            self._depth -= 1
+
+    def _sharded_softmax(self, func, args, kwargs):
+        """``_softmax`` over a dim that some mesh dims shard: a local max,
+        an all-reduce MAX of it, the local sum of the exponentials and an
+        all-reduce SUM of the sums over those mesh dims.  The output keeps
+        the input's layout."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        self._depth += 1
+        try:
+            with self:
+                x, dim = args[0], args[1] % args[0].ndim
+                mesh = x.device_mesh
+                dims = [i for i, p in enumerate(x.placements)
+                        if isinstance(p, Shard) and p.dim == dim]
+                local = x.to_local()
+                if len(args) > 2 and args[2]:
+                    local = local.float()
+                m = self._all_reduce(local.amax(dim, keepdim=True), mesh, dims, "max")
+                m = torch.where(torch.isfinite(m), m, 0.0)
+                e = torch.exp(local - m)
+                s = self._all_reduce(e.sum(dim, keepdim=True), mesh, dims, "sum")
+                out = e / s
+                return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                                          shape=x.shape, stride=_contiguous_stride(x.shape))
         finally:
             self._depth -= 1
 
@@ -496,6 +613,176 @@ def _sharded_on_indexed(x, indices) -> bool:
         return False
     idx_dims = {i for i, t in enumerate(indices) if t is not None}
     return any(isinstance(p, Shard) and p.dim in idx_dims for p in x.placements)
+
+
+def _sharded_on_dim(x, dim) -> bool:
+    """Whether the DTensor ``x`` is sharded along its dim ``dim``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return False
+    dim %= x.ndim
+    return any(isinstance(p, Shard) and p.dim == dim for p in x.placements)
+
+
+def _local_as(t, mesh, placements):
+    """The local block of ``t`` under ``placements`` (a plain tensor is
+    a replicated constant: it is returned as it is where every placement
+    replicates, else made a DTensor first)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        if all(p.is_replicate() for p in placements):
+            return t
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, placements).to_local()
+
+
+class _ScatterPlan(NamedTuple):
+    how: str  # sum | max | min | set
+    dims: tuple  # the mesh dims whose partials one all-reduce merges
+    moves: tuple  # (argument position, its placements: a list for index lists)
+
+
+_SCATTER_OPS = {"index_put", "index_put_", "_index_put_impl_", "index_add", "index_add_",
+                "scatter_add", "scatter_add_", "scatter_reduce", "scatter_reduce_"}
+_REDUCE_HOW = {"sum": "sum", "amax": "max", "amin": "min"}
+
+
+def _scatter_plan(func, args, kwargs) -> Optional[_ScatterPlan]:
+    """How ``_scatter_partial`` lays out a scatter, or None where it does
+    not apply: the target is a DTensor sharded only along dims the
+    scatter does not index, and on some mesh dim that replicates it an
+    index is sharded (its updates lie spread over that mesh dim)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    name = func._opname
+    if name not in _SCATTER_OPS or not isinstance(args[0], DTensor):
+        return None
+    x = args[0]
+    nd = x.ndim
+    R = Replicate()
+    if name.lstrip("_").startswith("index_put"):
+        indices = list(args[1])
+        idx_dims = [d for d, t in enumerate(indices) if t is not None]
+        accumulate = bool(args[3]) if len(args) > 3 else kwargs.get("accumulate", False)
+        how = "sum" if accumulate else ("max" if x.dtype == torch.bool else "set")
+        b_shape = tuple(torch.broadcast_shapes(*(tuple(indices[d].shape) for d in idx_dims)))
+        b_nd = len(b_shape)
+        consecutive = idx_dims == list(range(idx_dims[0], idx_dims[-1] + 1))
+        at = idx_dims[0] if consecutive else 0
+        n_out = nd - len(idx_dims) + b_nd
+        vals = args[2]
+        v_nd = vals.ndim if isinstance(vals, torch.Tensor) else 0
+
+        def out_dim(d):
+            return d if d < at else d + b_nd - sum(1 for i in idx_dims if d > i)
+
+        def plan_dim(i, p):
+            """(index placements, value placement, partial?) on mesh dim i."""
+            if isinstance(p, Shard):
+                vd = out_dim(p.dim) - (n_out - v_nd)
+                v = Shard(vd) if vd >= 0 and vals.shape[vd] > 1 else R
+                return [R if indices[d] is not None else None for d in range(len(indices))], v, False
+            bd = None
+            for d in idx_dims:
+                t = indices[d]
+                q = t.placements[i] if isinstance(t, DTensor) else R
+                if isinstance(q, Shard) and t.shape[q.dim] > 1:
+                    bd = q.dim + b_nd - t.ndim
+                    break
+            if bd is None:
+                return [R if indices[d] is not None else None for d in range(len(indices))], R, False
+            ipl = []
+            for d in range(len(indices)):
+                t = indices[d]
+                if t is None:
+                    ipl.append(None)
+                    continue
+                k = bd - (b_nd - t.ndim)
+                ipl.append(Shard(k) if k >= 0 and t.shape[k] > 1 else R)
+            vd = at + bd - (n_out - v_nd)
+            v = Shard(vd) if vd >= 0 and vals.shape[vd] > 1 else R
+            return ipl, v, True
+
+        per = [plan_dim(i, p) for i, p in enumerate(x.placements)]
+        if any(isinstance(p, Shard) and p.dim in idx_dims for p in x.placements):
+            return None
+        moves = ((1, [[pl[0][d] for pl in per] if indices[d] is not None else None
+                      for d in range(len(indices))]),)
+        if isinstance(vals, torch.Tensor):
+            moves += ((2, [pl[1] for pl in per]),)
+    else:
+        dim = args[1] % nd
+        index, src = args[2], args[3]
+        if name.startswith("scatter_reduce"):
+            include_self = args[5] if len(args) > 5 else kwargs.get("include_self", True)
+            how = _REDUCE_HOW.get(args[4])
+            if how is None or not include_self:
+                return None
+        else:
+            how = "sum"
+        if not isinstance(index, DTensor) or _sharded_on_dim(x, dim):
+            return None
+        per = []
+        for i, p in enumerate(x.placements):
+            q = index.placements[i]
+            if isinstance(p, Shard):
+                per.append((R if name.startswith("index_add") else p, p, False))
+            elif isinstance(q, Shard) and q.dim == (0 if name.startswith("index_add") else dim):
+                # the index sharded along its entries (a scatter's index
+                # sharded along another dim follows the target's rows:
+                # DTensor's own layout)
+                per.append((q, Shard(dim) if name.startswith("index_add") else q, True))
+            else:
+                per.append((R, R, False))
+        moves = ((2, [pl[0] for pl in per]), (3, [pl[1] for pl in per]))
+    if any(not (p.is_replicate() or isinstance(p, Shard)) for p in x.placements):
+        return None
+    dims = tuple(i for i, pl in enumerate(per) if pl[2])
+    if not dims:
+        return None
+    return _ScatterPlan(how, dims, moves)
+
+
+# pointwise ops XLA counts as transcendentals, not FLOPs
+_TRANSCENDENTAL = {"exp", "exp2", "expm1", "log", "log1p", "log2", "log10", "sin", "cos",
+                   "tan", "tanh", "sigmoid", "erf", "erfc", "erfinv", "pow", "sqrt", "rsqrt",
+                   "atan2", "silu", "gelu", "softplus", "logit", "reciprocal"}
+_NO_FLOPS = {"clone", "copy", "fill", "zero", "lift_fresh_copy"}
+_COMBINING_SCATTERS = {"index_add", "scatter_add", "scatter_reduce", "index_put",
+                       "_index_put_impl"}
+
+
+def _flops(func, args, kwargs, ins, outs, out) -> int:
+    """The op's FLOPs as XLA's cost analysis counts them (module
+    docstring)."""
+    packet = func._overloadpacket
+    if packet in flop_registry:
+        return int(flop_registry[packet](*args, **kwargs, out_val=out))
+    base = func._opname.rstrip("_")
+    if base in _NO_FLOPS or base in _TRANSCENDENTAL:
+        return 0
+    if torch.Tag.pointwise in func.tags or base == "_to_copy":
+        return sum(t.numel() for t in outs[:1])
+    if torch.Tag.reduction in func.tags:
+        return ins[0].numel() if ins else 0
+    if base in ("_softmax", "_log_softmax"):
+        return 4 * (outs[0].numel() if outs else 0)  # max, subtract, sum, divide
+    if base in ("cumsum", "cumprod", "cummax", "cummin"):
+        return ins[0].numel() if ins else 0
+    if base in _COMBINING_SCATTERS:
+        if base.startswith("index_put") or base == "_index_put_impl":
+            if not (bool(args[3]) if len(args) > 3 else kwargs.get("accumulate", False)):
+                return 0
+            idx = [(d, t) for d, t in enumerate(args[1]) if t is not None]
+            entries = int(np.prod(torch.broadcast_shapes(*(tuple(t.shape) for _, t in idx)),
+                                  dtype=np.int64))
+            indexed = int(np.prod([args[0].shape[d] for d, _ in idx], dtype=np.int64))
+            return entries * (args[0].numel() // max(indexed, 1))
+        src = args[3] if len(args) > 3 and isinstance(args[3], torch.Tensor) else None
+        return src.numel() if src is not None else 0
+    return 0
 
 
 def _local_shape(x) -> tuple:

@@ -8,6 +8,11 @@ per-device shapes can be held against it.  The mesh needs a default
 process group of that world size: the dry run starts one on the ``fake``
 backend in one process (``launch.dryrun.fake_world``).
 
+Real ranks: ``init_ranks`` starts the default process group of a
+multi-process run (``torchrun --nproc-per-node k``, or an explicit
+``init_method`` such as a ``file://`` store), NCCL on the card and gloo
+on the host, and ``rank_mesh`` lays a ``DeviceMesh`` over its ranks.
+
 The roofline constants are one H100 SXM's datasheet figures.  A
 collective whose ranks all sit in one HGX node (8 GPUs joined by NVLink)
 is priced at the NVLink rate, any other at the per-GPU network rate
@@ -16,10 +21,14 @@ larger than 8 always leaves the node.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .._device import resolve
 
 # NVIDIA H100 Tensor Core GPU datasheet, SXM5 column: dense BF16 tensor
 # rate (1,979 TFLOP/s with sparsity, halved) and HBM3 bandwidth.
@@ -78,3 +87,59 @@ def spmd_mesh(mesh):
                       torch.arange(mesh.size()).reshape(sizes["pod"] * sizes["data"],
                                                         sizes["model"]),
                       mesh_dim_names=("pod+data", "model"))
+
+
+def init_ranks(backend: Optional[str] = None, device=None, *,
+               init_method: Optional[str] = None, rank: Optional[int] = None,
+               world_size: Optional[int] = None) -> torch.device:
+    """Start the default process group of this rank and return the
+    device it works on.
+
+    ``device`` as ``_device.resolve`` takes it: ``None`` is the card, and
+    a CUDA request without a GPU raises.  ``backend`` defaults to NCCL on
+    the card and gloo on the host; gloo on the card runs its collectives
+    through host memory where it has no CUDA form.  The rendezvous is
+    ``init_method`` with ``rank`` and ``world_size`` when given (tests
+    point it at a ``file://`` store), else torchrun's environment
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``).  On the
+    card each rank takes GPU ``LOCAL_RANK`` (default: its rank) modulo the
+    GPU count, so ranks may share one card.  A group already up is kept,
+    and its backend must be the one asked for."""
+    dev = resolve(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if dev.type == "cuda" and dev.index is None:
+        local = int(os.environ.get("LOCAL_RANK", rank if rank is not None
+                                   else os.environ.get("RANK", 0)))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {dist.get_backend()} process group is already up, "
+                               f"not {backend}")
+        return dev
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    if init_method is None:
+        dist.init_process_group(backend, **kw)
+    else:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world_size, **kw)
+    return dev
+
+
+def rank_mesh(shape: Optional[Tuple[int, ...]] = None,
+              names: Sequence[str] = ("data", "model"), device=None):
+    """A ``DeviceMesh`` over the default process group's ranks, laid out
+    row-major: ``shape`` (default: all ranks on the first axis, 1 on the
+    others) with the axis ``names``, of ``device``'s type (``None``: the
+    card).  Its ``get_group(axis)`` gives each axis's process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("rank_mesh needs a process group: call init_ranks first")
+    names = tuple(names)
+    if shape is None:
+        shape = (dist.get_world_size(),) + (1,) * (len(names) - 1)
+    if int(np.prod(shape)) != dist.get_world_size():
+        raise ValueError(f"mesh {tuple(shape)} does not cover {dist.get_world_size()} ranks")
+    return init_device_mesh(resolve(device).type, tuple(shape), mesh_dim_names=names)

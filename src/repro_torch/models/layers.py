@@ -26,11 +26,13 @@ eager torch has no scan.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from .._device import resolve
 from ..kernels import flash_decode as fd
@@ -211,12 +213,34 @@ def attention(params: Params, cfg: AttnConfig, x: torch.Tensor,
     return _einsum("bshk,hkd->bsd", o, params["wo"])
 
 
+def _kv_step(q_i, k_j, v_j, m, l, acc, *, scale: float, causal: bool, qpos, kpos):
+    """One (q block, kv block) step of the online softmax: the carries
+    ``(m, l, acc)`` after attending ``q_i`` to ``k_j``/``v_j``.  ``qpos``
+    and ``kpos`` are the blocks' positions where the step needs the
+    causal mask, else None."""
+    s = _einsum("bqhgk,bthk->bhgqt", q_i, k_j).float() * scale
+    if causal:
+        s = torch.where((qpos[:, None] >= kpos[None, :])[None, None, None], s, -torch.inf)
+    m_c = s.amax(dim=-1, keepdim=True)
+    m_n = torch.maximum(m, m_c)
+    m_safe = torch.where(torch.isfinite(m_n), m_n, 0.0)
+    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe), 0.0)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l = l * alpha[..., 0] + p.sum(-1)
+    acc = acc * alpha.to(acc.dtype) + _einsum("bhgqt,bthk->bhgqk", p.to(v_j.dtype), v_j)
+    return m_n, l, acc
+
+
 def _blockwise_attention(q, k, v, cfg: AttnConfig, scale: float, triangular: bool):
     """Blockwise online-softmax attention over Q_BLOCK query rows and
     KV_BLOCK key rows at a time.  ``triangular`` skips kv-blocks wholly
     above the causal diagonal and masks only the diagonal block.  The
     accumulator is in q's dtype, the running max and sum in float32, as
-    in the reference."""
+    in the reference.  Each step runs under
+    ``torch.utils.checkpoint`` whatever ``remat`` is, as the reference's
+    ``kv_step`` runs under ``jax.checkpoint``: autograd keeps only the
+    carries and the step's inputs, and the backward recomputes the
+    step's score and probability blocks."""
     B, S, H, dh = q.shape
     Kv = cfg.n_kv_heads
     g = H // Kv
@@ -228,6 +252,7 @@ def _blockwise_attention(q, k, v, cfg: AttnConfig, scale: float, triangular: boo
     kb = k.reshape(B, nk, KV_BLOCK, Kv, dh)
     vb = v.reshape(B, nk, KV_BLOCK, Kv, dh)
     dev = q.device
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     out_blocks = []
     for i in range(nq):
         q_i = qb[:, i]
@@ -238,19 +263,12 @@ def _blockwise_attention(q, k, v, cfg: AttnConfig, scale: float, triangular: boo
         l = torch.zeros((B, Kv, g, Q_BLOCK), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Kv, g, Q_BLOCK, dh), dtype=q.dtype, device=dev)
         for j in range(n_steps):
-            k_j, v_j = kb[:, j], vb[:, j]
-            s = _einsum("bqhgk,bthk->bhgqt", q_i, k_j).float() * scale
-            if cfg.causal and (j == j_hi or not triangular):
-                kpos = j * KV_BLOCK + torch.arange(KV_BLOCK, device=dev)
-                s = torch.where((qpos[:, None] >= kpos[None, :])[None, None, None], s, -torch.inf)
-            m_c = s.amax(dim=-1, keepdim=True)
-            m_n = torch.maximum(m, m_c)
-            m_safe = torch.where(torch.isfinite(m_n), m_n, 0.0)
-            p = torch.where(torch.isfinite(s), torch.exp(s - m_safe), 0.0)
-            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            l = l * alpha[..., 0] + p.sum(-1)
-            acc = acc * alpha.to(acc.dtype) + _einsum("bhgqt,bthk->bhgqk", p.to(v_j.dtype), v_j)
-            m = m_n
+            causal = cfg.causal and (j == j_hi or not triangular)
+            kpos = j * KV_BLOCK + torch.arange(KV_BLOCK, device=dev) if causal else None
+            step = functools.partial(_kv_step, scale=scale, causal=causal, qpos=qpos, kpos=kpos)
+            args = (q_i, kb[:, j], vb[:, j], m, l, acc)
+            m, l, acc = (ckpt.checkpoint(step, *args, use_reentrant=False) if grad
+                         else step(*args))
         o_i = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
         out_blocks.append(o_i.permute(0, 3, 1, 2, 4))
     return torch.stack(out_blocks, dim=1).reshape(B, S, H, dh)

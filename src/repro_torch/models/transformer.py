@@ -22,8 +22,10 @@ are kept as well.  Gradients are the same under all three.
 
 A config with ``moe`` set (``MoEFields``) replaces each layer's MLP by
 ``models/moe.py``'s block.  ``moe_impl="einsum"`` is that block;
-``"shardmap"``, the reference's explicit collective schedule over a
-(data, model) mesh, needs ranks and raises (ROADMAP item 16).
+``"shardmap"`` is ``models/moe_shardmap.py``'s, the reference's explicit
+collective schedule over the (data, model) mesh in
+``moe_shardmap.ACTIVE_MESH`` (it raises naming that mesh when none is
+set).
 
 ``init_params`` allocates each stacked leaf once, ``[n_layers, ...]`` in
 its dtype, and fills it layer by layer: its peak is the stack plus one
@@ -62,19 +64,12 @@ class LMConfig:
     qkv_bias: bool = False
     mlp_kind: str = "swiglu"  # swiglu (3-matrix) | gelu (2-matrix)
     attn_impl: str = "chunked"  # chunked | tri (triangular block schedule)
-    moe_impl: str = "einsum"  # einsum; shardmap (explicit collectives) needs ranks
+    moe_impl: str = "einsum"  # einsum | shardmap (explicit collectives over ACTIVE_MESH)
     norm: str = "rmsnorm"
     tie_embeddings: bool = True
     # MoE fields (None => dense)
     moe: Optional["MoEFields"] = None
     remat: str = "none"  # none | full | dots (activation checkpoint policy)
-
-    def __post_init__(self):
-        if self.moe_impl == "shardmap":
-            raise NotImplementedError(
-                "moe_impl='shardmap' is the reference's collective schedule over a "
-                "(data, model) mesh: it needs ranks across GPUs, ROADMAP item 16; on one "
-                "card use 'einsum'")
 
     @property
     def head_dim(self) -> int:
@@ -194,6 +189,10 @@ def _norm(cfg: LMConfig, p, x):
 def _mlp(cfg: LMConfig, p, x):
     """The layer's MLP: the MoE block when the config has ``moe``."""
     if cfg.moe is not None:
+        if cfg.moe_impl == "shardmap":
+            from . import moe_shardmap as MS
+
+            return MS.moe_apply_shardmap(p, cfg, x, MS.ACTIVE_MESH)
         return M.moe_apply(p, cfg, x)
     return L.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else L.swiglu(p, x)
 

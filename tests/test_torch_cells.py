@@ -126,10 +126,30 @@ def test_representative_step_runs_on_meta(arch, shape, host_mesh, jmesh):
     _same_leaves(out, want, widths=False)
 
 
-def test_shardmap_override_raises_naming_item_16(host_mesh):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tcells.build_cell("qwen3-moe-30b-a3b", "train_4k", host_mesh,
-                          overrides={"moe_impl": "shardmap"})
+def test_shardmap_override_runs_with_its_all_gathers():
+    """The ``moe_impl="shardmap"`` override builds and sets
+    ``ACTIVE_MESH`` (as the reference's cells do), and qwen3-moe
+    ``train_4k`` runs ``ok`` at 16x16 with the block's two all-gathers
+    recorded: one layer at full width, since the REDUCED config's 8
+    experts do not split over 16 model ranks (the reference's cell
+    asserts the same).  The override's collectives are those of the
+    einsum block's cell less its masked all-reduces."""
+    from repro_torch.models import moe_shardmap as MS
+
+    try:
+        with dryrun.fake_world(1):
+            host_mesh = mesh_lib.make_host_mesh()
+            cell = tcells.build_cell("qwen3-moe-30b-a3b", "train_4k", host_mesh,
+                                     reduced=True, overrides={"moe_impl": "shardmap"})
+            assert cell.meta["n_layers"] == 2 and MS.ACTIVE_MESH is host_mesh
+        kw = dict(n_layers_override=1)
+        res = dryrun.run_cell("qwen3-moe-30b-a3b", "train_4k", False,
+                              overrides={"moe_impl": "shardmap"}, **kw)
+        base = dryrun.run_cell("qwen3-moe-30b-a3b", "train_4k", False, **kw)
+    finally:
+        MS.ACTIVE_MESH = None
+    assert res["ok"] and res["collective_kinds"]["all-gather"] > 0
+    assert res["collective_bytes_per_dev"] < base["collective_bytes_per_dev"]
 
 
 def test_overrides_reach_the_moe_fields(host_mesh):
@@ -169,7 +189,8 @@ def test_tp_dp_mlp_flops_are_per_device():
     """relu(x @ w1) @ w2 with x's batch over ``data`` and the hidden dim
     over ``model`` on a 16x16 mesh: each device multiplies its
     (B/16, D) x (D, F/16) and (B/16, F/16) x (F/16, D) blocks.  The count
-    is the local product, not the global 2^33."""
+    is the local product, not the global 2^33, plus the ReLU's one FLOP
+    an element of its local block."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     B, D, F = 1024, 1024, 4096
@@ -181,7 +202,7 @@ def test_tp_dp_mlp_flops_are_per_device():
             (SH.P("data", None), SH.P(None, "model"), SH.P("model", None)), mesh)
         with implicit_replication(), dryrun.CostMode() as cm:
             y = torch.relu(x @ w1) @ w2
-    assert cm.flops == 2 * (B // 16) * D * (F // 16) * 2 == 67_108_864
+    assert cm.flops == 2 * (B // 16) * D * (F // 16) * 2 + (B // 16) * (F // 16) == 67_125_248
     assert tuple(y.shape) == (B, D)
     assert cm.collectives == []  # the row-parallel product stays a partial sum
 
@@ -245,11 +266,11 @@ def test_masked_gather_keeps_the_batch_shard_and_counts_local_flops():
 
 @pytest.mark.parametrize("inplace", [False, True])
 def test_index_add_strategies(inplace):
-    """A segment sum of edge messages sharded over ``data``: out of place
-    each device adds its E/16 messages into a partial (n, d) sum, reduced
-    by one all-reduce where it is read; in place into a replicated
-    buffer (which cannot change its placement) the messages and their
-    indices are gathered first."""
+    """A segment sum of edge messages sharded over ``data`` into a
+    replicated (n, d) buffer, in place or not: each device adds its E/16
+    messages into a partial sum, and one all-reduce over ``data`` merges
+    them, as GSPMD partitions the scatter.  The messages and their
+    indices are never gathered."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     E, n, d = 4096, 512, 32
@@ -263,10 +284,68 @@ def test_index_add_strategies(inplace):
             out = zeros.index_add_(0, idx, msg) if inplace else zeros.index_add(0, idx, msg)
             out = out.redistribute(out.device_mesh, [Replicate(), Replicate()])
     _, kinds = hlo_analysis.collective_bytes(cm.collectives)
-    if inplace:
-        assert kinds == {"all-gather": E * d * 4 + E * 8}
-    else:
-        assert kinds == {"all-reduce": n * d * 4}
+    assert kinds == {"all-reduce": n * d * 4}
+    assert cm.masked == {"scatter_partial": 1}
+    assert [len(c.ranks) for c in cm.collectives] == [16]
+
+
+def test_bool_set_from_sharded_indices_is_one_all_reduce_max():
+    """``out[idx] = True`` into a replicated mask with ``idx`` sharded over
+    the whole mesh (``dense_expand``'s frontier write): each device sets
+    its own entries and one all-reduce MAX over all 256 ranks merges the
+    masks, one byte an entry; the E indices are never gathered."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    E, n = 1 << 16, 4096
+    with dryrun.fake_world(256):
+        mesh = mesh_lib.make_production_mesh()
+        (idx,) = dryrun.distribute((torch.empty(E, dtype=torch.int64, device="meta"),),
+                                   (SH.P(("data", "model")),), mesh)
+        with implicit_replication(), dryrun.CostMode() as cm:
+            out = torch.zeros(n + 1, dtype=torch.bool, device="meta")
+            out = dryrun.distribute((out,), (SH.P(None),), mesh)[0]
+            out[idx] = True
+    _, kinds = hlo_analysis.collective_bytes(cm.collectives)
+    assert kinds == {"all-reduce": n + 1}
+    assert [len(c.ranks) for c in cm.collectives] == [256]
+    assert tuple(out.placements) == (Replicate(), Replicate())
+
+
+def test_softmax_over_a_sharded_dim_reduces_its_statistics():
+    """A softmax over scores whose last dim is sharded over ``model``
+    (the sequence of a decode cache): a local max and one all-reduce MAX
+    of it, a local sum of the exponentials and one all-reduce SUM, each
+    the size of one row statistic; the scores keep their layout and are
+    never gathered.  The local count is the max, subtract, sum and
+    divide over the local block, one FLOP an element each (the exp is a
+    transcendental)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    B, S = 64, 4096
+    with dryrun.fake_world(256):
+        mesh = mesh_lib.make_production_mesh()
+        (s,) = dryrun.distribute((torch.empty(B, S, device="meta"),),
+                                 (SH.P("data", "model"),), mesh)
+        with implicit_replication(), dryrun.CostMode() as cm:
+            w = torch.softmax(s, dim=-1)
+    _, kinds = hlo_analysis.collective_bytes(cm.collectives)
+    assert kinds == {"all-reduce": 2 * (B // 16) * 4}
+    assert tuple(w.placements) == (Shard(0), Shard(1))
+    local = (B // 16) * (S // 16)
+    assert 4 * local <= cm.flops <= 4 * local + 2 * (B // 16)  # + the guard on the max
+
+
+def test_pointwise_and_reduction_flops():
+    """XLA's counts: one FLOP per output element of a pointwise op, one
+    per input element of a reduction, none for a transcendental or a
+    copy."""
+    x = torch.empty(128, 64, device="meta")
+    with dryrun.CostMode() as cm:
+        y = x * 2 + 1
+        z = torch.exp(y)
+        z.sum(dim=1)
+        y.clone()
+    assert cm.flops == 2 * 128 * 64 + 128 * 64
 
 
 class _Boom(Exception):
@@ -301,26 +380,103 @@ def test_a_cell_that_cannot_run_fails(monkeypatch, capsys, step, error):
 _REF_DRYRUN = """
 import json, sys
 from repro.launch import dryrun
-r = dryrun.run_cell(sys.argv[1], sys.argv[2], False, reduced=True)
+overrides = json.loads(sys.argv[3]) if len(sys.argv) > 3 else None
+r = dryrun.run_cell(sys.argv[1], sys.argv[2], False, reduced=True,
+                    **({"overrides": overrides} if overrides else {}))
 print(json.dumps({"flops_per_dev": r["flops_per_dev"], "model_flops": r["model_flops"]}))
 """
 
 
-@pytest.mark.parametrize("arch,shape,factor", [("smollm-360m", "train_4k", 3.0),
-                                               ("gcn-cora", "full_graph_sm", 1.5)])
-def test_flops_per_dev_near_the_reference_dry_run(arch, shape, factor):
-    """The REDUCED cell at 16x16 counts per-device FLOPs within ``factor``
-    of the reference's dry run on 256 placeholder host devices (XLA's
-    post-SPMD cost analysis).  They are not equal: in the LM train cell
-    the eager count is 2.4x XLA's, nearly all of it the blockwise
-    attention's products (forward, recompute and backward), and in the
-    GNN cell 0.99x."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
-    done = subprocess.run([sys.executable, "-c", _REF_DRYRUN, arch, shape], env=env,
-                          capture_output=True, text=True, timeout=600, check=True)
+def _ref_env():
+    return dict(os.environ, JAX_PLATFORMS="cpu",
+                PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+
+
+@pytest.mark.parametrize("arch,shape", [("smollm-360m", "train_4k"),
+                                        ("gcn-cora", "full_graph_sm")])
+def test_flops_per_dev_near_the_reference_dry_run(arch, shape):
+    """The REDUCED cell at 16x16 counts per-device FLOPs within 1.5x of
+    the reference's dry run on 256 placeholder host devices (XLA's
+    post-SPMD cost analysis).  The LM cell is held against the reference
+    with its kv loop unrolled (``attn_impl="chunked_u"``): XLA counts a
+    loop body once, so the default count holds one kv step a q block
+    (ROADMAP §3).  Both count each kv step's forward again in the
+    backward (its checkpoint), and the elementwise work; the port's
+    count is 0.87x of it, the GNN cell's 1.00x."""
+    overrides = {"attn_impl": "chunked_u"} if arch == "smollm-360m" else None
+    done = subprocess.run([sys.executable, "-c", _REF_DRYRUN, arch, shape]
+                          + ([json.dumps(overrides)] if overrides else []),
+                          env=_ref_env(), capture_output=True, text=True, timeout=600,
+                          check=True)
     ref = json.loads(done.stdout.strip().splitlines()[-1])
     res = dryrun.run_cell(arch, shape, False, reduced=True)
     assert res["model_flops"] == pytest.approx(ref["model_flops"], rel=1e-12)
-    assert 1 / factor <= res["flops_per_dev"] / ref["flops_per_dev"] <= factor
+    assert 1 / 1.5 <= res["flops_per_dev"] / ref["flops_per_dev"] <= 1.5
     assert res["flops_per_dev"] >= res["model_flops"] / 256
+
+
+# The reference's collective bytes, recounted from its compiled HLO: its
+# own ``hlo_analysis.collective_bytes`` adds up every line that names a
+# collective, the fusions that only read one's result included, so its
+# figure holds 2x (query_bfs) to 11.5x (decode_32k) the bytes its
+# collective instructions move.  Here only the collective instructions
+# count, with the reference's L=1 / L=2 extrapolation for LM cells.
+_REF_COLLECTIVES = """
+import json, re, sys
+from repro.configs import registry
+from repro.launch import dryrun, mesh as M
+from repro.launch.hlo_analysis import _bytes_of_shape_str
+
+op = re.compile(r"=\\s*(.*?)\\s(all-gather|all-reduce|reduce-scatter|all-to-all|"
+                r"collective-permute)(?:-start)?\\(")
+
+def count(compiled):
+    return sum(_bytes_of_shape_str(m.group(1)) for m in map(op.search, compiled.as_text()
+               .splitlines()) if m)
+
+mesh = M.make_production_mesh()
+out = {}
+for cell in sys.argv[1:]:
+    arch, shape = cell.split("/")
+    r = dryrun.run_cell(arch, shape, False, reduced=True)
+    cell_, c = dryrun._compile_cell(arch, shape, mesh, reduced=True)
+    x = count(c)
+    if registry.get(arch).family == "lm":
+        L = cell_.meta["n_layers"]
+        x1, x2 = (count(dryrun._compile_cell(arch, shape, mesh, reduced=True, unroll=True,
+                                             n_layers_override=k)[1]) for k in (1, 2))
+        x = max(x, (x2 - x1) * (L - 1) + x1)
+    out[cell] = {"collectives": x, "reported": r["collective_bytes_per_dev"],
+                 "flops_per_dev": r["flops_per_dev"]}
+print(json.dumps(out))
+"""
+
+F2_CELLS = [("aspen-stream", "query_bfs"), ("dcn-v2", "train_batch"),
+            ("smollm-360m", "decode_32k")]
+
+
+@pytest.fixture(scope="module")
+def ref_collectives():
+    done = subprocess.run([sys.executable, "-c", _REF_COLLECTIVES]
+                          + [f"{a}/{s}" for a, s in F2_CELLS], env=_ref_env(),
+                          capture_output=True, text=True, timeout=600, check=True)
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch,shape", F2_CELLS)
+def test_collective_bytes_near_the_reference_dry_run(arch, shape, ref_collectives):
+    """The REDUCED cell at 16x16 moves per-device collective bytes within
+    3x either way of the reference's collective instructions on 256
+    placeholder host devices: the frontier write of ``query_bfs`` and
+    dcn-v2's embedding gradient go as a local scatter and one all-reduce,
+    the decode softmax over the sequence-sharded cache all-reduces its
+    row statistics, as GSPMD lays them out.  ``query_bfs`` counts its
+    elementwise FLOPs, within 3x of XLA's."""
+    ref = ref_collectives[f"{arch}/{shape}"]
+    res = dryrun.run_cell(arch, shape, False, reduced=True)
+    assert res["ok"]
+    assert ref["reported"] >= ref["collectives"] > 0
+    assert 1 / 3 <= res["collective_bytes_per_dev"] / ref["collectives"] <= 3
+    if arch == "aspen-stream":
+        assert res["flops_per_dev"] > 0
+        assert 1 / 3 <= res["flops_per_dev"] / ref["flops_per_dev"] <= 3

@@ -287,6 +287,60 @@ def test_attention_matches_reference(S, impl):
                  f"attention S={S} {impl}")
 
 
+def _blockwise_qkv(S=4096, H=5, dh=12, seed=11):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, S, H, dh)).astype(np.float32) for _ in range(3)]
+
+
+def test_blockwise_attention_saves_only_the_carries():
+    """At REDUCED smollm's head shape (1, 4096, 5, 12) in float32 the
+    backward of the blockwise attention keeps each step's carries and
+    inputs only (the reference's ``jax.checkpoint`` per kv step), not its
+    score and probability blocks: at most 64 MB where every step's
+    blocks took 1402 MB."""
+    cfg = tL.AttnConfig(d_model=60, n_heads=5, n_kv_heads=5, d_head=12)
+    q, k, v = (_t(a).requires_grad_() for a in _blockwise_qkv())
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        o = tL._blockwise_attention(q, k, v, cfg, 12 ** -0.5, False)
+    assert sum(saved) <= 64e6, f"{sum(saved) / 1e6:.1f} MB saved"
+    o.sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_blockwise_attention_gradients_match_reference(triangular):
+    """Forward values and the gradients of q, k and v of the checkpointed
+    block loop against the reference's ``_blockwise_attention`` under
+    ``jax.grad`` (a fixed random cotangent)."""
+    S = 3072
+    cfg = tL.AttnConfig(d_model=24, n_heads=2, n_kv_heads=1, d_head=12)
+    jcfg = jL.AttnConfig(d_model=24, n_heads=2, n_kv_heads=1, d_head=12)
+    q, k, v = _blockwise_qkv(S, 2, 12, seed=3)
+    k, v = k[:, :, :1], v[:, :, :1]
+    ct = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    scale = 12 ** -0.5
+
+    def jfn(q, k, v):
+        o = jL._blockwise_attention(q, k, v, jcfg, scale, triangular, False)
+        return (o * ct).sum(), o
+
+    (_, jo), jg = jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    to = tL._blockwise_attention(tq, tk, tv, cfg, scale, triangular)
+    (to * _t(ct)).sum().backward()
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), rtol=1e-5, atol=1e-6)
+    for t, g, name in zip((tq, tk, tv), jg, "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"d{name}")
+
+
 # ---------------------------------------------------------------------------
 # transformer
 # ---------------------------------------------------------------------------

@@ -226,9 +226,39 @@ def test_shard_dispatch_is_inert():
     assert torch.equal(tM.moe_apply(tp, tcfg_sd, xt), tM.moe_apply(tp, tcfg, xt))
 
 
-def test_shardmap_raises_naming_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        dataclasses.replace(configs()[1], moe_impl="shardmap")
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_shardmap_moe_matches_einsum_moe(mesh_shape, tmp_path):
+    """``moe_apply_shardmap`` on a (data, model) mesh of gloo ranks on the
+    CPU, each rank routing its own B/nd rows, against the reference's
+    ``moe.moe_apply`` on the whole batch within atol 1e-5 (the reference's
+    ``test_shardmap_moe_matches_einsum_moe``; capacity 16, so no expert
+    overflows its local slots).  The transformer's ``moe_impl="shardmap"``
+    route over ``ACTIVE_MESH`` gives the same."""
+    from test_torch_ranks import moe_shardmap_run, spawn_ranks
+
+    jcfg, _, jp, _, x = setup()
+    want = np.asarray(jM.moe_apply(jp, jcfg, jnp.asarray(x)))
+    common = dict(name="m", n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_ff=16,
+                  vocab=64)
+    fields = dict(n_experts=8, top_k=2, capacity_factor=16.0)
+    res = spawn_ranks(moe_shardmap_run, int(np.prod(mesh_shape)), tmp_path, mesh_shape,
+                      jax.tree.map(np.asarray, jp), x, (common, fields))
+    for r in res:
+        lo, hi = r["rows"]
+        np.testing.assert_allclose(r["out"], want[lo:hi], rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(r["via_layer"], r["out"])
+
+
+def test_shardmap_without_a_mesh_raises():
+    """``moe_impl="shardmap"`` builds, and its forward raises naming the
+    mesh it lacks when no ``ACTIVE_MESH`` is set."""
+    from repro_torch.models import moe_shardmap as MS
+
+    _, tcfg, _, tp, x = setup()
+    cfg = dataclasses.replace(tcfg, moe_impl="shardmap")
+    assert MS.ACTIVE_MESH is None
+    with pytest.raises(RuntimeError, match="ACTIVE_MESH"):
+        tT._mlp(cfg, tp, torch.from_numpy(x))
 
 
 def test_moe_init_layout_matches_reference():
