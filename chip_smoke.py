@@ -11,8 +11,10 @@ checks every result.  One JSON object per phase goes to stdout:
           against the plain version and the ``index_add_`` yardstick;
   stream  ``AspenStream`` (paper §7.3 setting) at 2^18 vertices: update
           batches through the host C-tree and the device mirror, queries
-          held against the numpy engine on the same version after every
-          publish, then ``run_concurrent``;
+          after every publish, held against the numpy engine on the same
+          version after each of its 9 publishes (in a forked child, on
+          the version's tree decoded once, ``DecodedSnapshot``), then
+          ``run_concurrent``;
   scale   the device engine at soc-LiveJournal scale (2^22 vertices,
           ~66 M directed rMAT edges, drawn on the card) built straight
           into the device pool:
@@ -156,7 +158,7 @@ checks every result.  One JSON object per phase goes to stdout:
           ``make_prefill`` at B = 1, S = 3072 (blockwise attention) in
           float32 against the token-by-token decode of the same prompt
           through ``make_serve_step`` on the kernel (full width, depth cut
-          to 8 layers for time), the bf16 model's drift from float32 on
+          to 2 layers for time), the bf16 model's drift from float32 on
           one step, then ``generate`` on the kernel in bf16 with all 32
           layers for 8 left-padded prompts of 5-32 tokens, 16 new tokens;
   train   training through ``launch.train``: smollm-360m FULL in float32
@@ -267,6 +269,9 @@ PR_RTOL = 1e-5
 # the lane and the numpy engine); more no longer fit the time limit beside
 # the stream phase's nine checks and the later phases.
 COMPRESSED_CHECKED_PUBLISHES = (0, 8)
+
+# Where the stream phase's forked numpy checks leave their answers.
+STREAM_CHECK_DIR = ROOT / "build" / "stream_checks"
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and float32 rate
 # outside the tensor cores.
@@ -538,8 +543,10 @@ def phase_stream() -> dict:
 
     lat = {"bfs": [], "pagerank": [], "sssp": []}
     publish_s = []
-    checked = 0
+    pending = []  # (child pid, its answers' file, the card's answers) per publish
     pr_rel_err = [0.0]
+    shutil.rmtree(STREAM_CHECK_DIR, ignore_errors=True)
+    STREAM_CHECK_DIR.mkdir(parents=True)
 
     def timed(kind, **kw):
         t = time.perf_counter()
@@ -548,30 +555,45 @@ def phase_stream() -> dict:
         return out
 
     def check_version(weighted: bool) -> None:
-        nonlocal checked
-        deg = stream.engine("numpy").degrees
+        """The card's answers on the current version now; the numpy
+        engine's on the same version in a forked child (``fork_check``),
+        held against them once every publish is made (``settle``)."""
+        deg = stream.engine("torch").degrees.cpu().numpy()
         srcs = rng.choice(np.flatnonzero(deg > 0), 16, replace=False)
         resets = rng.random((8, n))
         resets /= resets.sum(1, keepdims=True)
-        got = timed("bfs", sources=srcs)
-        want = stream.query_batch(srcs, kind="bfs", backend="numpy")
-        if not np.array_equal(got, want):
-            raise AssertionError("stream: bfs parents differ from the numpy engine")
-        got = timed("pagerank", resets=resets)
-        want = stream.query_batch(kind="pagerank", backend="numpy", resets=resets)
-        # float32 on the card against the numpy engine's float64: relative
-        # to each entry (they average 1/n), with a floor for the smallest.
-        atol = 1e-6 * float(np.abs(want).max())
-        err = np.abs(got - want)
-        pr_rel_err[0] = max(pr_rel_err[0], float((err / np.maximum(np.abs(want), atol)).max()))
-        if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=PR_RTOL, atol=atol)):
-            raise AssertionError(f"stream: pagerank off by {err.max()} (rel {pr_rel_err[0]})")
+        got = {"bfs": timed("bfs", sources=srcs), "pagerank": timed("pagerank", resets=resets)}
         if weighted:
-            got = timed("sssp", sources=srcs[:4])
-            want = stream.query_batch(srcs[:4], kind="sssp", backend="numpy")
-            if not np.array_equal(got, want):
-                raise AssertionError("stream: sssp distances differ from the numpy engine")
-        checked += 1
+            got["sssp"] = timed("sssp", sources=srcs[:4])
+        path = STREAM_CHECK_DIR / f"publish_{len(pending)}.npz"
+        pending.append((fork_check(stream, srcs, resets, weighted, path), path, got))
+
+    def settle() -> dict:
+        """Each publish's card answers against its child's: BFS parents and
+        SSSP distances equal, PageRank within ``PR_RTOL``."""
+        t = time.perf_counter()
+        out = {"decode_s": [], "numpy_s": []}
+        for i, (pid, path, got) in enumerate(pending):
+            want = wait_check(pid, path, f"stream publish {i}")
+            out["decode_s"].append(float(want["decode_s"]))
+            out["numpy_s"].append(float(want["numpy_s"]))
+            if not np.array_equal(got["bfs"], want["bfs"]):
+                raise AssertionError(f"stream: publish {i}: bfs parents differ from the numpy "
+                                     "engine")
+            # float32 on the card against the numpy engine's float64: relative
+            # to each entry (they average 1/n), with a floor for the smallest.
+            g, w = got["pagerank"], want["pagerank"]
+            atol = 1e-6 * float(np.abs(w).max())
+            err = np.abs(g - w)
+            pr_rel_err[0] = max(pr_rel_err[0], float((err / np.maximum(np.abs(w), atol)).max()))
+            if not (np.all(np.isfinite(g)) and np.allclose(g, w, rtol=PR_RTOL, atol=atol)):
+                raise AssertionError(f"stream: publish {i}: pagerank off by {err.max()} "
+                                     f"(rel {pr_rel_err[0]})")
+            if "sssp" in got and not np.array_equal(got["sssp"], want["sssp"]):
+                raise AssertionError(f"stream: publish {i}: sssp distances differ from the "
+                                     "numpy engine")
+        out["wait_s"] = time.perf_counter() - t
+        return out
 
     def publish(fn, *args, **kw):
         t = time.perf_counter()
@@ -594,6 +616,7 @@ def phase_stream() -> dict:
     if min(launches["segment_sum"], launches["segment_sum_weighted"]) == 0:
         raise AssertionError(f"stream: a kernel was never launched: {launches}")
     kernel_err = stream_kernel_check(stream.engine("torch"))
+    checks = settle()
 
     srcs = np.arange(16)
     conc = st.run_concurrent(
@@ -608,7 +631,8 @@ def phase_stream() -> dict:
         "batches": n_batches + 1,
         "updates_per_batch": batch,
         "publishes": len(publish_s),
-        "versions_checked_vs_numpy": checked,
+        "versions_checked_vs_numpy": len(checks["decode_s"]),
+        "checks": checks,
         "pagerank_max_rel_err": pr_rel_err[0],
         "pagerank_rtol": PR_RTOL,
         "kernel_max_abs_err": kernel_err,
@@ -619,6 +643,67 @@ def phase_stream() -> dict:
     }
     emit(out)
     return launches, stream
+
+
+def fork_check(stream, srcs, resets, weighted: bool, path: Path) -> int:
+    """Fork a child that answers the stream's current version on the numpy
+    engine (the version's host tree decoded once, ``DecodedSnapshot``):
+    BFS from ``srcs``, PageRank from ``resets`` and, on a weighted
+    version, SSSP from ``srcs[:4]``, into ``path``.  The child holds its
+    own copy of the tree (copy on write), runs numpy only (no CUDA, no
+    torch op) and leaves with ``os._exit``; the parent goes on to the next
+    publish at once.  Returns the child's pid (``wait_check``)."""
+    from repro_torch.core import graph as G
+    from repro_torch.core.traversal.numpy_backend import NumpyEngine
+
+    v = stream.acquire()
+    try:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        pid = os.fork()
+        if pid == 0:
+            code = 1
+            try:
+                t = time.perf_counter()
+                eng = NumpyEngine(DecodedSnapshot(G.flat_snapshot(v.graph)))
+                t1 = time.perf_counter()
+                out = {"bfs": stream._serve_kind(eng, "bfs", srcs, {}),
+                       "pagerank": stream._serve_kind(eng, "pagerank", None, {"resets": resets})}
+                if weighted:
+                    out["sssp"] = stream._serve_kind(eng, "sssp", srcs[:4], {})
+                tmp = path.with_name(path.stem + ".tmp.npz")
+                np.savez(tmp, decode_s=t1 - t, numpy_s=time.perf_counter() - t1, **out)
+                os.replace(tmp, path)
+                code = 0
+            except BaseException:  # noqa: BLE001 - reported through the exit code
+                import traceback
+
+                traceback.print_exc()
+            finally:
+                os._exit(code)
+    finally:
+        stream.release(v)
+    return pid
+
+
+def wait_check(pid: int, path: Path, what: str, timeout_s: float = 300.0):
+    """A ``fork_check`` child's answers, once it has exited 0; a child that
+    fails, or runs past ``timeout_s`` (then killed), fails the phase."""
+    t = time.perf_counter()
+    while True:
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done:
+            break
+        if time.perf_counter() - t > timeout_s:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
+            raise AssertionError(f"{what}: the numpy check ran past {timeout_s} s")
+        time.sleep(0.05)
+    code = os.waitstatus_to_exitcode(status)
+    if code != 0:
+        raise AssertionError(f"{what}: the numpy check exited {code}")
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
 
 
 def stream_kernel_check(eng, widths=(1, 8), what: str = "stream") -> dict:
@@ -2617,7 +2702,24 @@ RANK_JOBS = {
     "stream_gloo": (2, "gloo"),  # (c) two ranks
     "moe_nccl": (1, "nccl"),  # moe_shardmap on a 1x1 mesh, FULL width
     "moe_gloo": (2, "gloo"),  # moe_shardmap on a 2x1 mesh, REDUCED width
+    "train_one": (1, "nccl"),  # ranks_train: the one-rank step at n_micro=2
+    "train_gloo": (2, "gloo"),  # ranks_train: ZeRO-1 on a (2, 1) mesh
 }
+TRAIN_JOBS = ("train_one", "train_gloo")  # started after the others end
+# engines_gloo (15.3 GB a rank) starts when engines_nccl (23.2 GB) ends:
+# beside the stream and MoE children and the parent, both at once came
+# within 0.4 GB of the card's 80 GB
+LATE_JOBS = {"engines_gloo": "engines_nccl"}
+# ranks_serve: the service on the stream children's sharded stream
+RANK_SERVE_REQUESTS = 64  # the fixed replay, graph_serve's mix
+RANK_SERVE_WINDOW_S = 5.0  # each load window on rank 0
+RANK_SERVE_UPDATE_BATCH = 4096  # update rows a writer batch in the second window
+# ranks_train: smollm-360m FULL float32 at a global B 4 x S 512, 3 steps
+TRAIN_RANK_BATCH, TRAIN_RANK_SEQ, TRAIN_RANK_STEPS = 4, 512, 3
+TRAIN_RANK_CKPT = RANKS_DIR / "train_ckpt"  # the two ranks' checkpoint after step 2
+# the ranks against the one-rank child on the card: cuBLAS and the
+# attention's backward need not add in the CPU's order (bits reported)
+TRAIN_RANK_LOSS_RTOL, TRAIN_RANK_ATOL = 1e-5, 1e-5
 RANK_STREAM_LOG_N = 16  # cut from sharded_stream's 2^18: each rank builds its own tree
 RANK_STREAM_DRAWS = 2**19
 RANK_COMM = (15, 32)  # the compressed engines' rMAT communities: 32 of 2^15 vertices
@@ -2790,7 +2892,297 @@ def rank_stream(tag: str) -> dict:
                resident_bytes=sst.engine("sharded").resident_nbytes)
     if not out["launches"].get("segment_sum"):
         raise AssertionError(f"ranks {tag}: segment_sum never launched: {out['launches']}")
+    out["serve"] = rank_serve(sst, edges, live, tag)
     return out
+
+
+def rank_serve(sst, edges, live, tag: str) -> dict:
+    """ranks_serve: ``GraphQueryService(backend="sharded")`` on the stream
+    child's sharded stream, every rank building it; rank 0 serves and the
+    other ranks follow its collective lane.  (1) a fixed replay of
+    ``RANK_SERVE_REQUESTS`` (graph_serve's mix, zipf(2.0) sources over the
+    live vertices) with the cache off: the replay, a session's BFS and
+    SSSP across one publish, the replay again; then with the cache on: the
+    replay, the same publish again (a new version of the same graph), the
+    replay; (2) rank 0's closed-loop windows, 24 clients alone and beside a
+    writer fed with ``UpdateQueue.put_many``.  Answers go to
+    ``{tag}_serve.npz``; each service's lane log is hashed."""
+    import hashlib
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import streaming as st
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.serve.graph import GraphQueryService
+
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    rng = np.random.default_rng(SEED + 40)
+    kinds = [k for k, _ in SERVE_MIX]
+    probs = [p for _, p in SERVE_MIX]
+
+    def src_of(crng, kind):
+        return None if kind == "cc" else int(live[min(crng.zipf(SERVE_ZIPF) - 1,
+                                                      live.size - 1)])
+
+    replay = [(kinds[i], None) for i in rng.choice(len(kinds), RANK_SERVE_REQUESTS, p=probs)]
+    replay = [(k, src_of(rng, k)) for k, _ in replay]
+    pub = rng.choice(live, (32, 2))
+    pub = pub[pub[:, 0] != pub[:, 1]]
+    out = {"requests": len(replay), "n": int(2**RANK_STREAM_LOG_N)}
+    logs = {}
+
+    def serve(name, svc, body):
+        t = time.perf_counter()
+        if rank0:
+            with svc:
+                res = body(svc)
+        else:
+            svc.start()
+            res = None
+        log = svc.op_log
+        logs[name] = {"ops": len(log), "sha1": hashlib.sha1(repr(log).encode()).hexdigest(),
+                      "s": time.perf_counter() - t}
+        return res
+
+    def ask(svc, reqs):
+        tickets = [svc.submit(k, source=s) for k, s in reqs]
+        return [np.asarray(t.result(timeout=300)) for t in tickets]
+
+    def publish(svc):
+        svc.insert_edges(pub)
+        svc.flush_updates(timeout=300)
+        svc.flush_promotions(timeout=300)
+
+    def cache_off(svc):
+        with svc.session("t") as sess:
+            q = [("bfs", replay[0][1] or int(live[0])), ("sssp", int(live[0]))]
+            before = [np.asarray(sess.query(k, source=x).result(timeout=300)) for k, x in q]
+            a = ask(svc, replay)
+            publish(svc)
+            after = [np.asarray(sess.query(k, source=x).result(timeout=300)) for k, x in q]
+        if not all(np.array_equal(x, y) for x, y in zip(before, after)):
+            raise AssertionError(f"ranks_serve {tag}: a session saw a publish")
+        return a, ask(svc, replay)
+
+    def cache_on(svc):
+        a = ask(svc, replay)
+        publish(svc)
+        b = ask(svc, replay)
+        return a, b, svc.stats()["cache"]
+
+    sr.reset_launches()
+    t0 = time.perf_counter()
+    off = serve("cache_off", GraphQueryService(sst, backend="sharded", max_batch=16,
+                                               result_cache=False), cache_off)
+    on = serve("cache_on", GraphQueryService(sst, backend="sharded", max_batch=16,
+                                             fastpath=True), cache_on)
+    out["replay_s"] = time.perf_counter() - t0
+    if rank0:
+        answers = {}
+        for name, rows in (("off_a", off[0]), ("off_b", off[1]), ("on_a", on[0]),
+                           ("on_b", on[1])):
+            for i, a in enumerate(rows):
+                answers[f"{name}_{i}"] = a
+        np.savez(RANKS_DIR / f"{tag}_serve.npz", **answers)
+        out["kinds"] = [k for k, _ in replay]
+        out["replay_cache"] = on[2]
+        # cached against uncached, on the same graph (the second publish
+        # re-inserts the first's pairs)
+        for name in ("on_a", "on_b"):
+            for i, (k, _) in enumerate(replay):
+                a, b = answers[f"{name}_{i}"], answers[f"off_b_{i}"]
+                same = np.array_equal(a, b)
+                if not same and (k != "pagerank" or np.abs(a - b).max() > 1e-6):
+                    raise AssertionError(f"ranks_serve {tag}: cached {k} differs from uncached")
+
+    def windows(svc):
+        import torch
+
+        stop = threading.Event()
+        records, errors = [], []
+        lock = threading.Lock()
+        _, rows = st.make_update_stream(edges, 4 * RANK_SERVE_UPDATE_BATCH, seed=SEED + 41)
+
+        def client(i):
+            crng = np.random.default_rng(SEED + 200 + i)
+            try:
+                while not stop.is_set():
+                    kind = kinds[crng.choice(len(kinds), p=probs)]
+                    t = svc.submit(kind, source=src_of(crng, kind),
+                                   tenant="alice" if i % 2 == 0 else "bob")
+                    t.result(timeout=300)
+                    with lock:
+                        records.append((t.t_submit, t.latency_s, t.cached))
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+                stop.set()
+
+        def feeder():
+            try:
+                for lo in range(0, rows.shape[0], RANK_SERVE_UPDATE_BATCH):
+                    svc.flush_updates(timeout=300)
+                    if stop.is_set():
+                        return
+                    svc.updates.put_many(rows[lo:lo + RANK_SERVE_UPDATE_BATCH])
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"feeder: {type(e).__name__}: {e}")
+                stop.set()
+
+        t = time.perf_counter()
+        svc.warmup()
+        torch.cuda.synchronize()
+        res = {"warmup_s": time.perf_counter() - t}
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        lane0 = svc.stats()["ranks"]
+        t_quiet = time.perf_counter()
+        for th in threads:
+            th.start()
+        stop.wait(RANK_SERVE_WINDOW_S)
+        t_live = time.perf_counter()
+        lane1 = svc.stats()["ranks"]
+        threads.append(threading.Thread(target=feeder))
+        threads[-1].start()
+        stop.wait(RANK_SERVE_WINDOW_S)
+        stop.set()
+        t_end = time.perf_counter()
+        lane2 = svc.stats()["ranks"]
+        for th in threads:
+            th.join(timeout=300)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"ranks_serve {tag}: load failed: {errors[:4]}")
+        svc.flush_updates(timeout=300)
+        svc.flush_promotions(timeout=300)
+        for name, lo, hi, a, b in (("quiet", t_quiet, t_live, lane0, lane1),
+                                   ("live", t_live, t_end, lane1, lane2)):
+            lat = sorted(r[1] for r in records if lo <= r[0] < hi)
+            w = {"answers": len(lat), "qps": len(lat) / (hi - lo),
+                 "p50_s": lat[len(lat) // 2] if lat else None,
+                 "p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
+                 "cached": sum(1 for r in records if lo <= r[0] < hi and r[2])}
+            if a is not None:
+                w["lane_ops_per_s"] = (b["ops"] - a["ops"]) / (hi - lo)
+                w["lane_busy_share"] = (b["op_s"] - a["op_s"]) / (hi - lo)
+            res[name] = w
+        st_ = svc.stats()
+        res.update(publishes=st_["publishes"], cache=st_["cache"], ranks=st_["ranks"],
+                   updates=st_["updates"])
+        return res
+
+    t0 = time.perf_counter()
+    win = serve("windows", GraphQueryService(
+        sst, backend="sharded", max_batch=16, default_deadline_s=0.25,
+        tenant_weights=SERVE_TENANTS, work_conserving=True,
+        update_batch=RANK_SERVE_UPDATE_BATCH), windows)
+    out["windows_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["logs"] = logs
+    out["launches"] = {k: sr.LAUNCHES[k] for k in ("segment_sum", "segment_sum_weighted")}
+    if not out["launches"]["segment_sum"]:
+        raise AssertionError(f"ranks_serve {tag}: row 1 never launched: {out['launches']}")
+    if rank0:
+        out["windows"] = win
+        for c in (on[2], win["cache"]):
+            if c["promote_errors"] or c["promoted_dropped"]:
+                raise AssertionError(f"ranks_serve {tag}: promotion failed: {c}")
+    return out
+
+
+def rank_train(tag: str) -> dict:
+    """ranks_train: smollm-360m FULL float32 at a global B 4 x S 512
+    through ``launch.train`` (``data_mesh``, ``make_lm_run``,
+    ``train_specs``).  ``train_gloo``: two gloo ranks sharing the card,
+    ZeRO-1 on a (2, 1) mesh, 2 of the 4 rows each; ``train_one``: one
+    NCCL rank at ``n_micro=2``, the step the ranks are held to.  Three
+    steps; the ranks save their state with its specs after step 2; each
+    child then restores that checkpoint onto its own world (the one-rank
+    child waits for it) and takes step 3 again.  The final state goes to
+    ``build/ranks/{job}_final`` (gathered, with its specs) for the parent
+    to compare."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import smollm_360m
+    from repro_torch.dist import shardings as SH
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_step as TS
+
+    job = tag.rsplit("_", 1)[0]
+    cfg = smollm_360m.FULL
+    args = launch.parser().parse_args([
+        "--arch", "smollm-360m", "--steps", str(TRAIN_RANK_STEPS),
+        "--batch", str(TRAIN_RANK_BATCH), "--seq", str(TRAIN_RANK_SEQ), "--n-micro", "2",
+        "--device", "cuda", "--seed", str(SEED)])
+    mesh = launch.data_mesh("cuda")
+    params, step_fn, batch_fn = launch.make_lm_run(cfg, args, mesh)
+    specs = None if mesh is None else launch.train_specs("lm", cfg, params, mesh)
+    state = TS.init_state(params)
+    if mesh is not None:
+        state = SH.place(state, specs, mesh)
+    del params
+    out = {"world": 1 if mesh is None else mesh.size(), "config": cfg.name,
+           "batch": TRAIN_RANK_BATCH, "seq": TRAIN_RANK_SEQ,
+           "opt_bytes": sum(t.numel() * t.element_size()
+                            for t in leaves(state.opt.m) + leaves(state.opt.v))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the peaks of the set-up, each step and the save: the child's whole
+    # peak is the largest of them and of what follows
+    times, hist, peaks = [], [], []
+    set_up_peak = torch.cuda.max_memory_allocated()
+    for step in range(TRAIN_RANK_STEPS):
+        if step == 2 and mesh is not None:
+            # the save's peak on the card, and its bytes above the state
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            ckpt.save(str(TRAIN_RANK_CKPT), 2, state, specs, mesh=mesh)
+            out["save_s"] = time.perf_counter() - t
+            out["save_peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["save_extra_bytes"] = out["save_peak_bytes"] - held
+            peaks.append(out["save_peak_bytes"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, m = step_fn(state, batch_fn(step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        peaks.append(torch.cuda.max_memory_allocated())
+        hist.append({k: float(v) for k, v in m.items()})
+    out.update(step_s=times, s_per_step=steady(times), steps=hist, peak_bytes=max(peaks))
+    # the ranks' step-2 checkpoint onto this world, and step 3 from it
+    marker = TRAIN_RANK_CKPT / "step_000000002" / "COMMITTED"
+    t = time.perf_counter()
+    while not marker.exists():
+        if time.perf_counter() - t > RANK_TIMEOUT_S:
+            raise AssertionError(f"ranks_train {tag}: no step-2 checkpoint")
+        time.sleep(0.5)
+    out["ckpt_wait_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    s2, restored = ckpt.restore(str(TRAIN_RANK_CKPT), 2, device="cuda", template=state,
+                                mesh=mesh, target_specs=specs)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t
+    restored, m = step_fn(restored, batch_fn(2))
+    again = {k: float(v) for k, v in m.items()}
+    out["resumed_step3"] = again
+    out["resume_bits_equal"] = again == hist[2]
+    if not np.isclose(again["loss"], hist[2]["loss"], rtol=TRAIN_RANK_LOSS_RTOL, atol=0):
+        raise AssertionError(f"ranks_train {tag}: resumed step 3 {again} against {hist[2]}")
+    del restored
+    ckpt.save(str(RANKS_DIR / f"{job}_final"), TRAIN_RANK_STEPS, state, specs, mesh=mesh)
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"ranks_train {tag}: a non-finite loss {hist}")
+    if mesh is not None:
+        dist.barrier()
+    out["child_peak_bytes"] = max(peaks + [set_up_peak, torch.cuda.max_memory_allocated()])
+    return out
+
+
 
 
 def rank_moe(tag: str) -> dict:
@@ -2837,7 +3229,9 @@ def rank_moe(tag: str) -> dict:
             "moe_ms": time_ms(lambda: M.moe_apply(p, cfg, xl), reps=5)}
 
 
-RANK_FNS = {"engines": rank_engines, "stream": rank_stream, "moe": rank_moe}
+
+RANK_FNS = {"engines": rank_engines, "stream": rank_stream, "moe": rank_moe,
+            "train": rank_train}
 
 
 def rank_job(job: str, rank: int) -> int:
@@ -2863,20 +3257,28 @@ def rank_job(job: str, rank: int) -> int:
         if backend is not None:
             dist.destroy_process_group()
     res.update(job=job, rank=rank, world=world, backend=backend,
-               device=torch.cuda.get_device_name(0), wall_s=time.perf_counter() - t)
+               device=torch.cuda.get_device_name(0), wall_s=time.perf_counter() - t,
+               child_peak_bytes=max(res.get("child_peak_bytes", 0),
+                                    torch.cuda.max_memory_allocated()))
     (RANKS_DIR / f"{tag}.json").write_text(json.dumps(res))
     return 0
 
 
-def start_rank_jobs() -> dict:
-    """Every rank of ``RANK_JOBS``, started at once, each a process that
-    is stopped when this one exits; each reads a copy of the autotuner's
-    table."""
+def start_rank_jobs(jobs=None) -> dict:
+    """Every rank of ``jobs`` (default: ``RANK_JOBS`` but ``TRAIN_JOBS`` and
+    ``LATE_JOBS``), started at once, each a process that is stopped when
+    this one exits; each reads a copy of the autotuner's table."""
+    if jobs is None:
+        jobs = [j for j in RANK_JOBS if j not in TRAIN_JOBS and j not in LATE_JOBS]
+    jobs = list(jobs)
     for f in RANKS_DIR.glob("*"):
-        if f.suffix in (".json", ".store", ".err", ".npy") or f.name.startswith("tune_"):
-            f.unlink()
+        if any(f.name.startswith(p) for j in jobs for p in (f"{j}_", f"{j}.", f"tune_{j}_")):
+            shutil.rmtree(f) if f.is_dir() else f.unlink()
+    if "train_gloo" in jobs:
+        shutil.rmtree(TRAIN_RANK_CKPT, ignore_errors=True)
     procs = {}
-    for job, (world, _) in RANK_JOBS.items():
+    for job in jobs:
+        world = RANK_JOBS[job][0]
         for r in range(world):
             tune = RANKS_DIR / f"tune_{job}_{r}.json"
             if TUNE_TABLE.exists():
@@ -2893,23 +3295,32 @@ def start_rank_jobs() -> dict:
 
 def wait_rank_jobs(procs: dict, jobs, t0: float) -> dict:
     """The jobs' results by job, each a list by rank; every rank must exit
-    0 within ``RANK_TIMEOUT_S`` of ``t0`` (else all are stopped)."""
+    0 within ``RANK_TIMEOUT_S`` of ``t0``.  The first rank to exit
+    otherwise, or the deadline, stops all of them, with the ranks' error
+    output in the message."""
+    keys = [(job, r) for job in jobs for r in range(RANK_JOBS[job][0])]
+
+    def fail(what: str):
+        for q in procs.values():
+            q.poll() is None and q.kill()
+        errs = "".join(f"\n--- {j}_{r}:\n" + (RANKS_DIR / f"{j}_{r}.err").read_text()[-2000:]
+                       for j, r in keys)
+        raise AssertionError(f"ranks: {what}{errs}")
+
+    while True:
+        running = [k for k in keys if procs[k].poll() is None]
+        for job, r in keys:
+            rc = procs[(job, r)].returncode
+            if rc not in (None, 0):
+                fail(f"{job} rank {r} exited {rc}")
+        if not running:
+            break
+        if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+            fail(f"{running} still running after {RANK_TIMEOUT_S} s")
+        time.sleep(0.2)
     out = {}
-    for job in jobs:
-        for r in range(RANK_JOBS[job][0]):
-            p = procs[(job, r)]
-            try:
-                rc = p.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))
-            except subprocess.TimeoutExpired:
-                for q in procs.values():
-                    q.poll() is None and q.kill()
-                raise AssertionError(f"ranks: {job} rank {r} still running after "
-                                     f"{RANK_TIMEOUT_S} s")
-            if rc != 0:
-                err = (RANKS_DIR / f"{job}_{r}.err").read_text()[-3000:]
-                raise AssertionError(f"ranks: {job} rank {r} exited {rc}:\n{err}")
-            out.setdefault(job, []).append(
-                json.loads((RANKS_DIR / f"{job}_{r}.json").read_text()))
+    for job, r in keys:
+        out.setdefault(job, []).append(json.loads((RANKS_DIR / f"{job}_{r}.json").read_text()))
     return out
 
 
@@ -2921,10 +3332,18 @@ def phase_ranks(procs: dict, t0: float) -> dict:
     after each publish the lanes of all rows and BFS equal the one-rank
     stream's, PageRank within atol 1e-6.  The segment-sum (and, for the
     compressed engine, decode) kernels launch on every rank."""
+    import torch
+
     ref = np.load(RANKS_DIR / "scale_ref.npz")
+    parent = {"allocated_bytes": torch.cuda.memory_allocated(),
+              "reserved_bytes": torch.cuda.memory_reserved()}
+    for late, after in LATE_JOBS.items():
+        wait_rank_jobs(procs, (after,), t0)
+        procs.update(start_rank_jobs((late,)))
     res = wait_rank_jobs(procs, ("engines_nccl", "engines_gloo", "stream_one", "stream_gloo"),
                          t0)
-    out = {"phase": "ranks", "wait_s": time.perf_counter() - t0, "engines": {}, "stream": {}}
+    out = {"phase": "ranks", "wait_s": time.perf_counter() - t0, "parent": parent,
+           "engines": {}, "stream": {}}
     for job in ("engines_nccl", "engines_gloo"):
         world = RANK_JOBS[job][0]
         for r in res[job]:
@@ -2967,6 +3386,104 @@ def phase_ranks(procs: dict, t0: float) -> dict:
                                                   "resident_bytes", "wall_s")}
                                | {"publish_s": [c["publish_s"] for c in r["checks"]]}
                                for r in res["stream_gloo"]]}
+    out["child_peak_bytes"] = {f"{job}_{r['rank']}": r["child_peak_bytes"]
+                               for job, rs in res.items() for r in rs}
+    emit(out)
+    return res
+
+
+def phase_ranks_serve(res: dict) -> dict:
+    """ranks_serve, read from the stream children (``rank_serve``): rank
+    0's replay answers against the one-rank service's (BFS, CC, SSSP bit
+    for bit; PageRank within atol 1e-6), every follower's lane log equal
+    to rank 0's, row 1 launched on every rank, no promotion error or
+    drop; the windows' qps, p50 and p99, lane ops per second and the
+    median broadcast."""
+    one = res["stream_one"][0]["serve"]
+    ranks = [r["serve"] for r in res["stream_gloo"]]
+    got = np.load(RANKS_DIR / "stream_gloo_0_serve.npz")
+    want = np.load(RANKS_DIR / "stream_one_0_serve.npz")
+    pr_err, n = 0.0, 0
+    for key in want.files:
+        a, b = got[key], want[key]
+        kind = one["kinds"][int(key.rsplit("_", 1)[1])]
+        if kind == "pagerank":
+            pr_err = max(pr_err, float(np.abs(a - b).max()))
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"ranks_serve: {key} ({kind}) differs from one rank")
+        n += 1
+    if pr_err > 1e-6:
+        raise AssertionError(f"ranks_serve: pagerank off by {pr_err}")
+    def ops(s):
+        return {k: (v["ops"], v["sha1"]) for k, v in s["logs"].items()}
+
+    for r, s in enumerate(ranks[1:], 1):
+        if ops(s) != ops(ranks[0]):
+            raise AssertionError(f"ranks_serve: rank {r}'s op log differs from rank 0's")
+    for r, s in enumerate(ranks):
+        if not s["launches"]["segment_sum"]:
+            raise AssertionError(f"ranks_serve: row 1 never launched on rank {r}")
+    win, win1 = ranks[0]["windows"], one["windows"]
+    out = {"phase": "ranks_serve", "n": one["n"], "requests": one["requests"],
+           "answers_compared": n, "pagerank_max_abs_err": pr_err,
+           "launches": [s["launches"] for s in ranks], "one_rank_launches": one["launches"],
+           "ops": {k: v["ops"] for k, v in ranks[0]["logs"].items()},
+           "replay_s": [s["replay_s"] for s in ranks], "one_rank_replay_s": one["replay_s"],
+           "windows_s": [s["windows_s"] for s in ranks],
+           "two_ranks": {w: win[w] for w in ("quiet", "live")}
+           | {"warmup_s": win["warmup_s"], "publishes": win["publishes"],
+              "broadcast_us_p50": win["ranks"]["broadcast_us_p50"],
+              "lane_ops": win["ranks"]["ops"], "lane_s_by_op": win["ranks"]["op_s_by_op"],
+              "cache": win["cache"]},
+           "one_rank": {w: win1[w] for w in ("quiet", "live")}
+           | {"warmup_s": win1["warmup_s"], "publishes": win1["publishes"]}}
+    emit(out)
+    return out
+
+
+def phase_ranks_train(procs: dict, t0: float) -> dict:
+    """ranks_train (``rank_train``): the two ZeRO-1 ranks against the
+    one-rank child at ``n_micro=2``, losses within rtol
+    ``TRAIN_RANK_LOSS_RTOL`` and every final leaf within
+    ``TRAIN_RANK_ATOL`` (bits reported); each rank's optimizer bytes about
+    half the one-rank child's; the resumed step 3 on each world."""
+    res = wait_rank_jobs(procs, TRAIN_JOBS, t0)
+    one, ranks = res["train_one"][0], res["train_gloo"]
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for r in ranks for a, b in zip(r["steps"], one["steps"]))
+    if loss_err > TRAIN_RANK_LOSS_RTOL:
+        raise AssertionError(f"ranks_train: losses off by {loss_err} of one rank's")
+    with open(RANKS_DIR / "train_one_final" / f"step_{TRAIN_RANK_STEPS:09d}" /
+              "manifest.json") as f:
+        manifest = json.load(f)
+    leaf_err, equal = 0.0, True
+    for leaf in manifest["leaves"]:
+        a = np.load(RANKS_DIR / "train_gloo_final" / f"step_{TRAIN_RANK_STEPS:09d}" /
+                    leaf["file"])
+        b = np.load(RANKS_DIR / "train_one_final" / f"step_{TRAIN_RANK_STEPS:09d}" /
+                    leaf["file"])
+        if not np.array_equal(a, b):  # the differences only where the bits differ
+            equal = False
+            leaf_err = max(leaf_err, float(np.abs(a.astype(np.float64) - b).max()))
+    if leaf_err > TRAIN_RANK_ATOL:
+        raise AssertionError(f"ranks_train: a leaf off by {leaf_err}")
+    opt_share = [r["opt_bytes"] / one["opt_bytes"] for r in ranks]
+    if max(opt_share) > 0.55:
+        raise AssertionError(f"ranks_train: optimizer bytes {opt_share} of one rank's")
+    for d in (TRAIN_RANK_CKPT, RANKS_DIR / "train_one_final", RANKS_DIR / "train_gloo_final"):
+        shutil.rmtree(d, ignore_errors=True)
+    keys = ("s_per_step", "step_s", "peak_bytes", "child_peak_bytes", "opt_bytes", "restore_s",
+            "resume_bits_equal", "ckpt_wait_s", "wall_s")
+    out = {"phase": "ranks_train", "config": one["config"], "batch": one["batch"],
+           "seq": one["seq"], "steps": TRAIN_RANK_STEPS, "loss_max_rel_err": loss_err,
+           "leaf_max_abs_err": leaf_err, "bits_equal": equal,
+           "losses_equal": all(a["loss"] == b["loss"] for r in ranks
+                               for a, b in zip(r["steps"], one["steps"])),
+           "opt_share": opt_share, "save_s": ranks[0]["save_s"],
+           "save_peak_bytes": [r["save_peak_bytes"] for r in ranks],
+           "save_extra_bytes": [r["save_extra_bytes"] for r in ranks],
+           "one_rank": {k: one[k] for k in keys} | {"steps": one["steps"]},
+           "ranks": [{k: r[k] for k in keys} | {"steps": r["steps"]} for r in ranks]}
     emit(out)
     return out
 
@@ -3368,7 +3885,10 @@ LM_BF16_RTOL = 0.25
 # float32 decode of the same prompt: two float32 orders of summation over
 # the layers (blockwise prefill attention against the kernel's splits).
 PREFILL_RTOL = 1e-4
-SERVE_CHECK_LAYERS = 8
+# the 3072-step check's depth: an eager step costs 1-2 ms of host time a
+# layer, and the script's 1200 s no longer held 8 layers beside the rank
+# phases on a slower host (1234 s)
+SERVE_CHECK_LAYERS = 2
 
 
 def flash_tol(want) -> dict:
@@ -3715,9 +4235,8 @@ def phase_lm_serve() -> dict:
     from repro_torch.serve import decode as serve
 
     cfg = smollm_360m.FULL
-    # the 3072-step check at smollm's width and 8 of its 32 layers: an
-    # eager step costs 1-2 ms of host time per layer, and with all 32
-    # layers the check took 172 s of this script's 1200 s
+    # the 3072-step check at smollm's width and SERVE_CHECK_LAYERS of its
+    # 32 layers (with all 32 it took 172 s of this script's 1200 s)
     check = dataclasses.replace(cfg, n_layers=SERVE_CHECK_LAYERS)
     out = {"phase": "lm_serve", "config": cfg.name, "check_layers": check.n_layers}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
@@ -4980,11 +5499,16 @@ def main() -> int:
 
     seconds = {}  # wall time of each phase, host clock
     tuning = {}  # each phase's cold consults, sweeps and sweep seconds
+    # this process's peak bytes on the card in each phase (from the phase's
+    # start, or from its own last reset of the counter)
+    peaks = {}
 
     def run(name, fn, *args):
         t, before = time.perf_counter(), tune_totals()
+        torch.cuda.reset_peak_memory_stats()
         res = fn(*args)
         seconds[name] = time.perf_counter() - t
+        peaks[name] = torch.cuda.max_memory_allocated()
         tuning[name] = tune_since(before)
         return res
 
@@ -5011,8 +5535,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_ranks, rank_procs = time.perf_counter(), start_rank_jobs()
-    run("ranks", phase_ranks, rank_procs, t_ranks)
+    rank_res = run("ranks", phase_ranks, rank_procs, t_ranks)
+    run("ranks_serve", phase_ranks_serve, rank_res)
     run("moe_shardmap", phase_moe_shardmap, rank_procs, t_ranks)
+    # the training children start once the stream, engine and MoE children end
+    t_train, train_procs = time.perf_counter(), start_rank_jobs(TRAIN_JOBS)
+    run("ranks_train", phase_ranks_train, train_procs, t_train)
     cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
     torch.cuda.empty_cache()
@@ -5048,7 +5576,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run("dryrun", phase_dryrun, smi, dry_proc)
-    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start,
+          "phase_peak_bytes": peaks})
     emit({"autotune_by_phase": {k: v for k, v in tuning.items() if v["consults"]},
           "autotune_total": tune_totals()})
 

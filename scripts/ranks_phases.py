@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""chip_smoke's multi-rank phases alone, on one GPU (~3 min).
+"""chip_smoke's multi-rank phases alone, on one GPU (~5 min).
 
     python3 scripts/ranks_phases.py            # from the repo root
 
 Builds the kernels, runs chip_smoke's ``scale`` and ``sharded_scale``
 phases (which write the flat engine's answers to
-``build/ranks/scale_ref.npz``), then the ``ranks`` and ``moe_shardmap``
-phases (their rank children, ``chip_smoke.py --rank-job``), and the
-``train`` phase's two smollm-360m steps at B 1 x S 4096.  Prints each
+``build/ranks/scale_ref.npz``), then the ``ranks``, ``ranks_serve``,
+``moe_shardmap`` and ``ranks_train`` phases (their rank children,
+``chip_smoke.py --rank-job``; the training children start when the
+MoE children end), and the ``train`` phase's two smollm-360m steps
+at B 1 x S 4096.  Prints each
 phase's JSON line as chip_smoke does, and each part's wall seconds.
 """
 import gc
@@ -45,9 +47,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     procs = cs.start_rank_jobs()
-    cs.phase_ranks(procs, t0)
+    res = cs.phase_ranks(procs, t0)
+    cs.phase_ranks_serve(res)
     cs.phase_moe_shardmap(procs, t0)
     cs.emit({"ranks_and_moe_shardmap_s": time.perf_counter() - t0})
+    t_train, train = time.perf_counter(), cs.start_rank_jobs(cs.TRAIN_JOBS)
+    cs.phase_ranks_train(train, t_train)
+    cs.emit({"ranks_train_s": time.perf_counter() - t_train})
     from repro_torch.configs import smollm_360m
 
     t1 = time.perf_counter()

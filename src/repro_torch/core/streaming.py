@@ -26,6 +26,10 @@ locally; ``engine("sharded")`` and ``query_batch`` then run on every
 rank together, their merges as collectives.  That is multi-controller
 SPMD, the counterpart of the reference's single controller driving a
 device mesh; every rank must call the same methods in the same order.
+A service drives its followers by descriptors: rank 0 names each
+update batch (``apply_updates``, the edges in the descriptor) and each
+version it serves by its stamp, and a follower keeps every version rank
+0 still holds (``StampHolds``) until rank 0 names it released.
 
 Incremental queries: every edge publish records its batch as a
 ``versioning.Delta`` in the version's aux, and ``stream.subscribe(kind,
@@ -171,7 +175,14 @@ def drain_updates(queue: UpdateQueue, stream: "AspenStream", max_batch: int,
     within a drain; weight-less rows in a weighted batch get unit
     weight."""
     rows = queue.pop_batch(max_batch)
-    if not rows:
+    return apply_updates(stream, rows, symmetric) if rows else 0
+
+
+def apply_updates(stream: "AspenStream", rows, symmetric: bool = True) -> int:
+    """``drain_updates``' publish of rows already popped, ``(src, dst,
+    delete, weight)`` each: a follower rank applies rank 0's rows here, in
+    rank 0's order, and publishes the same versions."""
+    if not len(rows):
         return 0
     ins = [(s, d, w) for s, d, dl, w in rows if not dl]
     dels = [(s, d) for s, d, dl, w in rows if dl]
@@ -184,6 +195,52 @@ def drain_updates(queue: UpdateQueue, stream: "AspenStream", max_batch: int,
     if dels:
         stream.delete_edges(np.asarray(dels, dtype=np.int64), symmetric=symmetric)
     return len(rows)
+
+
+class StampHolds:
+    """A follower rank's hold on the versions rank 0 holds: every version
+    its stream publishes is held here (a publish listener: one drain of
+    updates may publish twice, an insert and a delete) until rank 0 names
+    it released (``retain``), so a session's pinned version, the
+    promotion anchor and a flush's version are all found by stamp when
+    rank 0 serves on them."""
+
+    def __init__(self, stream: "AspenStream"):
+        self._stream = stream
+        self._held: dict = {}
+        self.hold_current()
+        self._unsubscribe = stream.on_publish(lambda v: self.hold_current())
+
+    def hold_current(self) -> Version[G.Graph]:
+        v = self._stream.acquire()
+        if v.stamp in self._held:
+            self._stream.release(v)
+            return self._held[v.stamp]
+        self._held[v.stamp] = v
+        return v
+
+    def __getitem__(self, stamp: int) -> Version[G.Graph]:
+        v = self._held.get(stamp)
+        if v is None:
+            raise KeyError(f"version {stamp} is not held on this rank "
+                           f"(held: {sorted(self._held)})")
+        return v
+
+    def __contains__(self, stamp: int) -> bool:
+        return stamp in self._held
+
+    def retain(self, live) -> List[int]:
+        """Release every held version whose stamp is not in ``live``; their
+        stamps."""
+        keep = set(live)
+        gone = [s for s in self._held if s not in keep]
+        for s in gone:
+            self._stream.release(self._held.pop(s))
+        return gone
+
+    def close(self) -> None:
+        self._unsubscribe()
+        self.retain(())
 
 
 class AspenStream:

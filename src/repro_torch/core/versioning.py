@@ -28,7 +28,9 @@ engines keyed by backend); the cache — and everything in it — dies with
 the version when the last reference drops, so engine caches can never
 leak across the version lifecycle or outlive their snapshot.
 
-Port copy of ``repro/core/versioning.py`` (numpy only), unchanged apart from this note.
+Port copy of ``repro/core/versioning.py`` (numpy only), unchanged apart from
+this note and ``live_stamps`` (the stamps a rank-0 service names to its
+follower ranks, ``serve/graph/collective.py``).
 """
 from __future__ import annotations
 
@@ -254,6 +256,12 @@ class VersionedGraph(Generic[G]):
     def live_versions(self) -> int:
         with self._lock:
             return len(self._versions)
+
+    def live_stamps(self) -> List[int]:
+        """The stamps of the live versions (the current one and every one
+        still held), ascending."""
+        with self._lock:
+            return sorted(self._versions)
 
     def collected_versions(self) -> int:
         with self._lock:

@@ -88,6 +88,12 @@ class ResumableRun:
     template).  A falsy ``directory`` disables checkpointing entirely
     (restore_or_init returns a fresh state; saves are no-ops).  A
     restored state lands on ``device`` (default the card).
+
+    Across ranks, ``specs`` (the state's spec tree) and ``mesh`` (the
+    ``DeviceMesh`` it is laid out on): saves gather the state's slices and
+    record the specs, restores place each rank's slice, and the fresh
+    state is ``make_state()`` placed the same way.  Every rank runs the
+    same calls.
     """
 
     def __init__(
@@ -96,28 +102,41 @@ class ResumableRun:
         make_state: Callable[[], Any],
         save_every: int = 100,
         device=None,
+        specs: Optional[Any] = None,
+        mesh=None,
     ):
         self.directory = directory
         self.make_state = make_state
         self.save_every = max(1, int(save_every))
         self.device = device
+        self.specs = specs
+        self.mesh = mesh
+
+    def _fresh(self, template):
+        if self.mesh is None:
+            return template
+        from .shardings import place
+
+        return place(template, self.specs, self.mesh)
 
     def restore_or_init(self) -> Tuple[int, Any]:
         template = self.make_state()
         if not self.directory:
-            return 0, template
+            return 0, self._fresh(template)
         from ..checkpoint import checkpoint as ckpt
 
-        if not ckpt.list_steps(self.directory):
-            return 0, template
-        return ckpt.restore(self.directory, device=self.device, template=template)
+        step = ckpt.latest_step(self.directory)  # rank 0's, under ranks
+        if step is None:
+            return 0, self._fresh(template)
+        return ckpt.restore(self.directory, step, device=self.device, template=template,
+                            mesh=self.mesh, target_specs=self.specs)
 
     def maybe_save(self, step: int, state: Any) -> bool:
         if not self.directory or step <= 0 or step % self.save_every != 0:
             return False
         from ..checkpoint import checkpoint as ckpt
 
-        ckpt.save(self.directory, step, state)
+        ckpt.save(self.directory, step, state, self.specs, mesh=self.mesh)
         return True
 
     def finish(self) -> None:

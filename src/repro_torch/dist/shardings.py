@@ -19,7 +19,11 @@ Conventions
   ``None``, an axis name, or a tuple of axis names; trees of specs walk in
   the port's ``_tree`` order, a ``Spec`` being a leaf.  ``placements``
   turns a spec into ``torch.distributed.tensor`` placements on a
-  ``DeviceMesh`` (the reference's ``named``).
+  ``DeviceMesh`` (the reference's ``named``); ``shard_of`` / ``place``
+  take a rank's slice out of a logical tensor (tree) by those placements
+  on a real mesh, ``gather_shard`` / ``gather`` put the slices together
+  again across the ranks, on every rank, and ``gather_to_rank0`` on rank
+  0's host only.
 """
 from __future__ import annotations
 
@@ -124,6 +128,119 @@ def placements(mesh, spec: Optional[Spec]):
         d = dims.pop()
         out.append(Replicate() if d is None else Shard(d))
     return tuple(out)
+
+
+def shard_of(t, spec: Optional[Spec], mesh, coord=None):
+    """This rank's slice of the logical tensor ``t`` laid out by ``spec``
+    on the ``DeviceMesh`` ``mesh`` (or the slice of the rank at mesh
+    coordinate ``coord``): for each mesh dim that ``placements`` shards,
+    the coordinate's share of equal chunks of that tensor dim, mesh dims
+    in order (a tuple entry shards major first, as DTensor and the
+    reference lay it out).  A dim that does not divide evenly raises (the
+    rules leave such dims replicated).  A view of ``t``: ``place`` copies
+    it out."""
+    coord = mesh.get_coordinate() if coord is None else coord
+    out = t
+    for i, pl in enumerate(placements(mesh, spec)):
+        k = int(mesh.size(i))
+        if not pl.is_shard() or k == 1:
+            continue
+        if out.shape[pl.dim] % k:
+            raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does not split into {k} "
+                             f"shards ({spec})")
+        c = out.shape[pl.dim] // k
+        out = out.narrow(pl.dim, int(coord[i]) * c, c)
+    return out
+
+
+def is_sharded(spec: Optional[Spec], mesh) -> bool:
+    """Whether ``spec`` splits a tensor over some mesh dim of more than one
+    rank."""
+    return any(pl.is_shard() and int(mesh.size(i)) > 1
+               for i, pl in enumerate(placements(mesh, spec)))
+
+
+def gather_to_rank0(local, spec: Optional[Spec], mesh):
+    """The logical tensor of which ``local`` is this rank's ``shard_of``,
+    on the host of global rank 0 (None on every other rank): every rank
+    calls it, each sends its slice to rank 0 in one ``gather`` over the
+    default group, and no rank but 0 ever holds the whole tensor (a
+    checkpoint's write)."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    if not is_sharded(spec, mesh):
+        return local.detach().cpu() if rank == 0 else None
+    x = local.detach().contiguous()
+    if x.is_cuda and dist.get_backend() == "gloo":
+        x = x.cpu()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())] if rank == 0 else None
+    dist.gather(x, parts, dst=0)
+    if rank != 0:
+        return None
+    shape = list(x.shape)
+    for i, pl in enumerate(placements(mesh, spec)):
+        if pl.is_shard():
+            shape[pl.dim] *= int(mesh.size(i))
+    out = torch.empty(shape, dtype=x.dtype)
+    layout = mesh.mesh
+    for r, part in enumerate(parts):
+        coord = [int(c) for c in (layout == r).nonzero()[0]]
+        shard_of(out, spec, mesh, coord).copy_(part)
+        parts[r] = None  # each slice leaves the card as it is placed
+    return out
+
+
+def place(tree, specs, mesh):
+    """Each leaf of ``tree`` (logical tensors) as this rank's slice by the
+    spec tree ``specs`` on ``mesh``, in its own memory."""
+    return map_specs(lambda sp, t: shard_of(t, sp, mesh).clone(), specs, tree)
+
+
+def _all_gather_dim(t, dim: int, group):
+    """``t``'s pieces from every rank of ``group`` joined along ``dim``, in
+    rank order (through host memory where gloo holds CUDA tensors)."""
+    import torch.distributed as dist
+
+    k = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = x.cpu() if host else x
+    out = src.new_empty((k * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(t.device).movedim(0, dim).contiguous() if host or dim else out
+
+
+def gather_shard(local, spec: Optional[Spec], mesh):
+    """The logical tensor of which ``local`` is this rank's ``shard_of``:
+    every rank calls it, and each sharded mesh dim is all-gathered (minor
+    first)."""
+    out = local
+    pls = placements(mesh, spec)
+    for i in reversed(range(len(pls))):
+        if pls[i].is_shard() and int(mesh.size(i)) > 1:
+            out = _all_gather_dim(out, pls[i].dim, mesh.get_group(i))
+    return out
+
+
+def gather(tree, specs, mesh):
+    """``gather_shard`` over a tree: the logical tree from every rank's
+    slices (every rank calls it and gets all of it)."""
+    return map_specs(lambda sp, t: gather_shard(t, sp, mesh), specs, tree)
+
+
+def spec_to_json(spec: Optional[Spec]):
+    """The reference's manifest form of a spec: ``list(P)``, a tuple entry
+    as a list of names; None stays None."""
+    if spec is None:
+        return None
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def spec_from_json(entries) -> Optional[Spec]:
+    return None if entries is None else P(*(tuple(e) if isinstance(e, list) else e
+                                            for e in entries))
 
 
 def local_shape(shape, spec: Optional[Spec], mesh) -> Tuple[int, ...]:

@@ -12,6 +12,10 @@ Real ranks: ``init_ranks`` starts the default process group of a
 multi-process run (``torchrun --nproc-per-node k``, or an explicit
 ``init_method`` such as a ``file://`` store), NCCL on the card and gloo
 on the host, and ``rank_mesh`` lays a ``DeviceMesh`` over its ranks.
+``control_group`` is a second, gloo, group over the same ranks for
+host-side messages (the graph query service's op descriptors,
+``send_op`` / ``recv_op`` / ``ack_op``), so they never queue behind the
+data collectives of the default group.
 
 The roofline constants are one H100 SXM's datasheet figures.  A
 collective whose ranks all sit in one HGX node (8 GPUs joined by NVLink)
@@ -21,7 +25,9 @@ larger than 8 always leaves the node.
 """
 from __future__ import annotations
 
+import atexit
 import os
+from datetime import timedelta
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -143,3 +149,61 @@ def rank_mesh(shape: Optional[Tuple[int, ...]] = None,
     if int(np.prod(shape)) != dist.get_world_size():
         raise ValueError(f"mesh {tuple(shape)} does not cover {dist.get_world_size()} ranks")
     return init_device_mesh(resolve(device).type, tuple(shape), mesh_dim_names=names)
+
+
+# the control channel: a wait for a control message ends with an error
+# after this long, so a rank that died ends its peers within it (a
+# closed connection ends them at once); rank 0 sends a keep-alive when
+# it has sent nothing for KEEPALIVE_S, so an idle service never gets
+# near it
+CONTROL_TIMEOUT_S = 60.0
+KEEPALIVE_S = 1.0
+_CONTROL: list = []  # [the gloo group], while it is registered
+
+
+def _drop_control() -> None:
+    _CONTROL.clear()  # before interpreter teardown, not during it
+
+
+atexit.register(_drop_control)
+
+
+def control_group():
+    """The gloo process group over every rank of the default group that
+    carries host-side control messages.  Made on first use, once per
+    default group: ``dist.new_group`` is itself a collective, so every
+    rank must make its first call at the same point (the graph query
+    service's constructor does)."""
+    if not dist.is_initialized():
+        raise RuntimeError("control_group needs a process group: call init_ranks first")
+    if _CONTROL:
+        try:
+            dist.get_process_group_ranks(_CONTROL[0])
+        except (KeyError, ValueError, RuntimeError):  # destroyed with its default group
+            _CONTROL.clear()
+    if not _CONTROL:
+        _CONTROL.append(dist.new_group(backend="gloo",
+                                       timeout=timedelta(seconds=CONTROL_TIMEOUT_S)))
+    return _CONTROL[0]
+
+
+def send_op(desc: dict) -> None:
+    """Rank 0: broadcast one control message (any picklable dict)."""
+    dist.broadcast_object_list([desc], src=0, group=control_group())
+
+
+def recv_op() -> dict:
+    """A follower rank: the next control message from rank 0 (raises after
+    ``CONTROL_TIMEOUT_S``, or at once when rank 0's connection closes)."""
+    box = [None]
+    dist.broadcast_object_list(box, src=0, group=control_group())
+    return box[0]
+
+
+def ack_op(fault: bool = False) -> bool:
+    """Every rank, at the end of a control message's work: one scalar
+    all-reduce over the control group; True when some rank reported a
+    fault."""
+    t = torch.tensor([int(fault)], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=control_group())
+    return bool(t.item())

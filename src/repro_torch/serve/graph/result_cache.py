@@ -95,10 +95,15 @@ class ResultCache:
     """LRU index over version-resident result entries.  See module
     docstring for the key/lifecycle/carry-forward contracts."""
 
-    def __init__(self, capacity: int = 512):
+    def __init__(self, capacity: int = 512, log_evictions: bool = False):
+        """``log_evictions``: record each evicted ``(stamp, kind, pkey,
+        source)`` in ``evicted`` (taken with ``take_evicted``), for a
+        rank-0 service whose follower ranks mirror the cache's contents
+        (``drop``)."""
         if capacity < 1:
             raise ValueError("cache capacity must be >= 1")
         self.capacity = int(capacity)
+        self.evicted: Optional[List[Tuple]] = [] if log_evictions else None
         self._lock = threading.Lock()
         # (stamp, kind, pkey, source) -> weakref to the owning Version;
         # insertion order is recency (move_to_end on hit)
@@ -166,8 +171,33 @@ class ResultCache:
                     if owner_slot is not None:
                         owner_slot.pop(old_lk[1:], None)
                     self.evictions += 1
+                    if self.evicted is not None:
+                        self.evicted.append(old_lk)
                 # a dead weakref's payload died with its version: the
                 # index entry is just pruned, not counted as an eviction
+
+    def take_evicted(self) -> List[Tuple]:
+        """The evictions logged since the last call (``log_evictions``)."""
+        with self._lock:
+            out, self.evicted = self.evicted, []
+            return out
+
+    def drop(self, v, kind: str, pkey: Tuple, source) -> None:
+        """Remove one entry from ``v`` (a follower rank mirroring rank 0's
+        eviction of it)."""
+        with self._lock:
+            slot = v.cache.get(RESULTS)
+            if slot is not None:
+                slot.pop((kind, pkey, source), None)
+            self._lru.pop((v.stamp, kind, pkey, source), None)
+
+    def forget(self, stamps) -> None:
+        """Drop the index entries of released versions (their payloads
+        died with them)."""
+        gone = set(stamps)
+        with self._lock:
+            for lk in [lk for lk in self._lru if lk[0] in gone]:
+                del self._lru[lk]
 
     # -- carry-forward -------------------------------------------------------
     def promotable(self, v_old, limit: int) -> List[Tuple[Tuple, CacheEntry]]:
@@ -191,20 +221,31 @@ class ResultCache:
             return out
 
     def carry_forward(self, stream, v_old, v_new, backend: str,
-                      limit: int = 32, delta=None) -> int:
+                      limit: int = 32, delta=None, announce=None) -> int:
         """Promote hot ``v_old`` entries onto ``v_new`` through the
         incremental paths (module docstring).  ``delta`` is the composed
         update record from ``v_old`` to ``v_new`` where the caller kept
         one; None asks ``vg.delta_between``, which is None itself when
         a hop between them was collected (the full-recompute signal).
         Runs on the service's promotion thread — never the writer's
-        publish callback, whose contract forbids compute.  Returns the
+        publish callback, whose contract forbids compute.  ``announce(
+        entries, delta)``, when given, is called before the first engine
+        call (a rank-0 service broadcasts the pass there).  Returns the
         number promoted."""
         entries = self.promotable(v_old, limit)
         if not entries:
             return 0
         if delta is None:
             delta = stream.vg.delta_between(v_old, v_new)
+        if announce is not None:
+            announce(entries, delta)
+        return self.carry_entries(stream, v_old, v_new, backend, entries, delta)
+
+    def carry_entries(self, stream, v_old, v_new, backend: str, entries, delta) -> int:
+        """``carry_forward``'s work on chosen ``(key, entry)`` pairs and a
+        composed ``delta`` (None: recompute in full): a follower rank runs
+        it on the keys rank 0 chose, from its own copies of the
+        entries."""
         eng_new = stream._engine_for(v_new, backend)
         eng_old = None  # fetched lazily: only sssp promotion needs it
         promoted = 0

@@ -47,9 +47,30 @@ opt-in ``fastpath`` mode additionally serves singleton misses
 synchronously on the caller thread when the executor is idle (batch=1
 without the lane/ticket/executor hop); like ``work_conserving`` it is
 off by default to keep flush accounting deterministic.
+
+Across ``torch.distributed`` ranks (a ``mirror="sharded"`` stream whose
+rows the ranks of the process group that ``launch.mesh.init_ranks``
+started share, more than one of them): every rank builds
+``GraphQueryService(stream, backend="sharded", ...)`` with the same
+arguments and calls ``start()`` / ``stop()``.  The stream's own mesh
+says so (``collective.lane_world``); another backend over such a
+stream, or ``backend="sharded"`` over a stream that is not sharded
+across the ranks, raises.  On rank 0 it is the
+service above: admission, tenancy, deadlines, the result cache and its
+hits, sessions and the batching all stay there, and every call that
+reaches a collective (a publish, a flush, the fast path, a promotion
+pass, warmup, a subscription's open, refresh and close) runs as one op
+of the collective lane (``collective.py``), which broadcasts the op's
+descriptor to the other ranks before it runs it.  On every other rank
+``start()`` runs the follower loop, which runs the descriptors it
+receives, until rank 0 stops; ``submit`` raises there.  A request rank 0
+rejects never reaches a follower, nor does a cache hit.  With no process
+group (or one rank, or a stream that is not sharded across the ranks,
+served by another backend) the service is the one above, unchanged.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -57,20 +78,33 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ...core.streaming import AspenStream, UpdateQueue, drain_updates
+from ...core.streaming import AspenStream, StampHolds, UpdateQueue, apply_updates, drain_updates
 from ...core.traversal import TRACES
 from ...core.versioning import DELTA, Delta
 
+from . import collective as C
 from . import lanes as L
 from .admission import AdmissionQueue, QueueFull
 from .metrics import LaneMetrics
 from .request import KINDS, QueryTicket, params_key
-from .result_cache import PROMOTE_BATCH, ResultCache
+from .result_cache import PROMOTE_BATCH, RESULTS, ResultCache
 from .sessions import Session
 
 __all__ = ["GraphQueryService", "QueueFull"]
 
 _MISSING = object()  # a hop whose listener call has not been recorded
+
+
+def _no_send(desc: dict) -> None:
+    """The descriptor sink of a service on one rank: nothing to tell."""
+
+
+def _delta_wire(d: Optional[Delta]):
+    return None if d is None else (d.ins, d.ins_w, d.dels)
+
+
+def _delta_of_wire(w) -> Optional[Delta]:
+    return None if w is None else Delta(ins=w[0], ins_w=w[1], dels=w[2])
 
 
 class GraphQueryService:
@@ -124,8 +158,26 @@ class GraphQueryService:
         # strict policy gives deterministic flush accounting.
         self.work_conserving = work_conserving
         self._active_flushes = 0
-        # cross-request result cache + delta carry-forward (DESIGN.md §14)
-        self._cache = ResultCache(cache_capacity) if result_cache else None
+        # under ranks: rank 0 runs the service, the others follow its
+        # descriptors (module docstring); every rank makes the control
+        # group here, at the same point
+        self._rank, self._world = C.lane_world(stream, self.backend)
+        self._lane: Optional[C.CollectiveLane] = None
+        self._lane_error: Optional[BaseException] = None
+        # (op, stamp) per op of the collective lane: rank 0's sent, a
+        # follower's run (equal on every rank of a run)
+        self.op_log: List[Tuple[str, int]] = []
+        self._subscriptions = 0  # lane subscriptions opened (their ids)
+        if self._world > 1:
+            from ...launch import mesh as mesh_lib
+
+            mesh_lib.control_group()
+        # cross-request result cache + delta carry-forward (DESIGN.md §14);
+        # a follower's copy evicts only what rank 0 evicted
+        self._cache = None
+        if result_cache:
+            self._cache = (ResultCache(sys.maxsize) if self._rank else
+                           ResultCache(cache_capacity, log_evictions=self._world > 1))
         self._carry = bool(carry_forward) and result_cache
         self._carry_limit = int(carry_limit)
         self._fastpath = bool(fastpath)
@@ -177,11 +229,21 @@ class GraphQueryService:
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "GraphQueryService":
+        """Start the threads; on a follower rank, run the follower loop
+        until rank 0 stops (then return)."""
+        if self._rank != 0:
+            self._follow()
+            return self
         with self._lock:
             if self._running:
                 return self
             self._running = True
             self._draining = False
+            self._lane_error = None
+        if self._world > 1:
+            self._lane = C.CollectiveLane(self.stream.vg.live_stamps, self._lane_extras,
+                                          self._lane_stamp, self._lane_fault, self.op_log)
+            self._lane.start()
         self._stop_writer.clear()
         self._stop_dispatcher.clear()
         self._unsubscribe = self.stream.on_publish(self._on_publish)
@@ -245,6 +307,8 @@ class GraphQueryService:
         if self._executor is not None:
             self._executor.shutdown(wait=True)
             self._executor = None
+        if self._lane is not None:
+            self._lane.stop()
         if self._unsubscribe is not None:
             self._unsubscribe()
             self._unsubscribe = None
@@ -300,13 +364,28 @@ class GraphQueryService:
             # apply can take a while) — it is what makes flush_updates a
             # real publish barrier
             self._writer_busy = True
-            k = drain_updates(
-                self.updates, self.stream, self.update_batch,
-                symmetric=self.symmetric_updates,
-            )
-            self._writer_busy = False
+            try:
+                k = self._drain_once()
+            except C.LaneFault:
+                return  # the service stopped with the lane
+            finally:
+                self._writer_busy = False
             if k == 0:
                 self.updates.wait_nonempty(timeout=0.005)
+
+    def _drain_once(self) -> int:
+        if self._lane is None:
+            return drain_updates(self.updates, self.stream, self.update_batch,
+                                 symmetric=self.symmetric_updates)
+        rows = self.updates.pop_batch(self.update_batch)
+        if not rows:
+            return 0
+
+        def publish(send):
+            send({"op": "publish", "rows": rows})
+            return apply_updates(self.stream, rows, self.symmetric_updates)
+
+        return self._lane.run(publish)
 
     def _on_publish(self, v) -> None:
         # runs on the WRITER thread: the on_publish contract forbids
@@ -378,15 +457,23 @@ class GraphQueryService:
             self.stream.release(cur)
             return
         self._promoting = True
-        try:
+
+        def promote(send):
+            def announce(entries, delta):
+                send({"op": "promote", "stamp": cur.stamp, "anchor": anchor.stamp,
+                      "keys": [key for key, _ in entries], "delta": _delta_wire(delta)})
+
             # the writer may have published several times since the last
             # pass, and nobody holds the versions in between; the recorded
             # hops keep the chain (the reference asks only
             # ``vg.delta_between`` and then recomputes in full)
-            self._cache.carry_forward(
+            return self._cache.carry_forward(
                 self.stream, anchor, cur, self.backend, limit=self._carry_limit,
-                delta=self._hop_chain(anchor, cur),
+                delta=self._hop_chain(anchor, cur), announce=announce,
             )
+
+        try:
+            self._on_lane(promote)
         except Exception as exc:  # noqa: BLE001 - counted in stats()
             # a failed round degrades hot entries to cold misses
             with self._lock:
@@ -460,6 +547,8 @@ class GraphQueryService:
         capture = 0
         with self._lock:
             if not self._running:
+                if self._rank != 0:
+                    raise RuntimeError(f"rank {self._rank} follows rank 0: submit on rank 0")
                 raise RuntimeError("service is not running")
             if self._cache is not None:
                 ent = self._cache_lookup_locked(ticket, session)
@@ -615,35 +704,32 @@ class GraphQueryService:
         lane wait and the executor handoff are skipped."""
         session = ticket.session
         m = self._kind_metrics[ticket.kind]
-        v = None
         error: Optional[BaseException] = None
+
+        def fast(send):
+            v = None
+            try:
+                if session is not None:
+                    ver = session.version
+                else:
+                    v = self.stream.acquire()
+                    ver = v
+                with self._lock:
+                    m.fastpath_syncs += 1
+                ticket.fastpath = True
+                send(self._batch_desc("fast", ver, ticket.kind, [ticket], ticket.params))
+                self._exec_batch(ver, ticket.kind, [ticket], dict(ticket.params), m)
+            finally:
+                if v is not None:
+                    self.stream.release(v)
+
         try:
-            if session is not None:
-                ver = session.version
-            else:
-                v = self.stream.acquire()
-                ver = v
-            eng = self.stream._engine_for(ver, self.backend)
-            key = L.trace_key(
-                ticket.kind, eng, L.dispatch_pow2(ticket.kind, [ticket]),
-                ticket.pkey,
-            )
-            with self._lock:
-                m.fastpath_syncs += 1
-                if key is not None:
-                    m.record_trace_key(key, warm=self._warm)
-            ticket.fastpath = True
-            L.execute_batch(
-                eng, ticket.kind, [ticket], dict(ticket.params),
-                cache=self._cache, version=ver,
-            )
+            self._on_lane(fast)
         except BaseException as exc:  # noqa: BLE001 - surfaces at result()
             error = exc
             if not ticket.done():
                 ticket._fail(exc)
         finally:
-            if v is not None:
-                self.stream.release(v)
             with self._lock:
                 self._admission.complete(ticket)
                 if error is None and ticket.deadline_missed:
@@ -739,37 +825,35 @@ class GraphQueryService:
         drop out of the dispatch), note the trace key for the SHRUNK
         batch, execute, then settle accounting."""
         params = dict(batch[0].params)
-        v = None
         n_cached = 0
         error: Optional[BaseException] = None
+
+        def flush(send):
+            nonlocal n_cached
+            v = None
+            try:
+                if lane.pin is not None:
+                    ver = lane.pin.version
+                else:
+                    v = self.stream.acquire()
+                    ver = v
+                live = L.serve_cached(self._cache, ver, lane.kind, batch)
+                n_cached = len(batch) - len(live)
+                if live:
+                    send(self._batch_desc("flush", ver, lane.kind, live, params))
+                    self._exec_batch(ver, lane.kind, live, params, lane.metrics)
+            finally:
+                if v is not None:
+                    self.stream.release(v)
+
         try:
-            if lane.pin is not None:
-                ver = lane.pin.version
-            else:
-                v = self.stream.acquire()
-                ver = v
-            live = L.serve_cached(self._cache, ver, lane.kind, batch)
-            n_cached = len(batch) - len(live)
-            if live:
-                eng = self.stream._engine_for(ver, self.backend)
-                key = L.trace_key(
-                    lane.kind, eng, L.dispatch_pow2(lane.kind, live), lane.pkey
-                )
-                if key is not None:
-                    with self._lock:
-                        lane.metrics.record_trace_key(key, warm=self._warm)
-                L.execute_batch(
-                    eng, lane.kind, live, params,
-                    cache=self._cache, version=ver,
-                )
+            self._on_lane(flush)
         except BaseException as exc:  # noqa: BLE001 - fail the tickets, not the service
             error = exc
             for t in batch:
                 if not t.done():
                     t._fail(exc)
         finally:
-            if v is not None:
-                self.stream.release(v)
             with self._lock:
                 self._active_flushes -= 1
                 lane.metrics.cache_hits += n_cached
@@ -794,6 +878,114 @@ class GraphQueryService:
             ):
                 raise TimeoutError("service did not go idle in time")
 
+    def _exec_batch(self, ver, kind: str, tickets: List[QueryTicket], params: dict,
+                    metrics: Optional[LaneMetrics]) -> None:
+        """Serve a batch on the held version ``ver`` (every rank runs it):
+        the engine (built here on its first query), the trace key, the
+        batched dispatch and the cache fill."""
+        eng = self.stream._engine_for(ver, self.backend)
+        key = L.trace_key(kind, eng, L.dispatch_pow2(kind, tickets), tickets[0].pkey)
+        if key is not None and metrics is not None:
+            with self._lock:
+                metrics.record_trace_key(key, warm=self._warm)
+        L.execute_batch(eng, kind, tickets, params, cache=self._cache, version=ver)
+
+    # -- the collective lane (under ranks; collective.py) ----------------------
+    def _on_lane(self, fn):
+        """``fn(send)`` as one op of the collective lane under ranks, else
+        here and now with a ``send`` that tells nobody."""
+        if self._lane is None:
+            return fn(_no_send)
+        return self._lane.run(fn)
+
+    @staticmethod
+    def _batch_desc(op: str, ver, kind: str, tickets: List[QueryTicket], params) -> dict:
+        return {"op": op, "stamp": ver.stamp, "kind": kind,
+                "sources": [t.source for t in tickets], "params": dict(params)}
+
+    def _lane_extras(self) -> dict:
+        return {"evict": [] if self._cache is None else self._cache.take_evicted()}
+
+    def _lane_stamp(self, desc: dict) -> int:
+        return desc.get("stamp", self.stream.vg.current_stamp)
+
+    def _lane_fault(self, exc: BaseException) -> None:
+        """The lane stopped on a fault: take no more requests (queued
+        tickets fail as their flushes reach the stopped lane)."""
+        with self._lock:
+            self._lane_error = exc
+            self._running = False
+        self._wake.set()
+
+    def _follow(self) -> None:
+        """A follower rank's service: run rank 0's descriptors until
+        ``stop`` (``collective.follow``), each logged in ``op_log``."""
+        holds = StampHolds(self.stream)
+        subs: Dict[int, Any] = {}
+
+        def handle(desc: dict) -> int:
+            released = holds.retain(desc["live"])
+            if self._cache is not None:
+                self._cache.forget(released)
+                for stamp, kind, pkey, source in desc.get("evict", ()):
+                    if stamp in holds:
+                        self._cache.drop(holds[stamp], kind, pkey, source)
+            op = desc["op"]
+            if op == "publish":
+                apply_updates(self.stream, desc["rows"], self.symmetric_updates)
+                return holds.hold_current().stamp
+            if op in ("keepalive", "release", "stop"):
+                return self.stream.vg.current_stamp
+            if op in ("subscribe", "refresh", "unsubscribe"):
+                return self._follow_subscription(desc, subs)
+            ver = holds[desc["stamp"]]
+            if op in ("flush", "fast"):
+                kind, params = desc["kind"], desc["params"]
+                tickets = [QueryTicket("_rank", kind, s, params, deadline=float("inf"))
+                           for s in desc["sources"]]
+                self._exec_batch(ver, kind, tickets, dict(params), None)
+            elif op == "warmup":
+                self._warm_body(ver, desc["kinds"], desc["params"])
+            elif op == "promote":
+                anchor = holds[desc["anchor"]]
+                slot = anchor.cache[RESULTS]
+                entries = [(tuple(k), slot[tuple(k)]) for k in desc["keys"]]
+                self._cache.carry_entries(self.stream, anchor, ver, self.backend, entries,
+                                          _delta_of_wire(desc["delta"]))
+            else:
+                raise C.LaneFault(f"unknown op {op!r}")
+            return ver.stamp
+
+        try:
+            C.follow(handle, self.op_log)
+        finally:
+            for sub in subs.values():
+                sub.close()
+            holds.close()
+
+    def _follow_subscription(self, desc: dict, subs: Dict[int, Any]) -> int:
+        op, sid = desc["op"], desc["id"]
+        if op == "subscribe":
+            subs[sid] = self.stream.subscribe(desc["kind"], sources=desc["sources"],
+                                              backend=self.backend, **desc["params"])
+        elif op == "refresh":
+            subs[sid].refresh()
+        else:
+            sub = subs.pop(sid)
+            sub.close()
+            return sub.stamp
+        return subs[sid].stamp
+
+    def subscribe(self, kind: str, sources=None, **params):
+        """A live subscription (``core.streaming.Subscription``) on the
+        service's stream and backend.  Under ranks its open, each
+        ``refresh()`` and ``close()`` run as ops of the collective lane
+        (the service must be running)."""
+        if self._lane is None:
+            return self.stream.subscribe(kind, sources=sources, backend=self.backend,
+                                         **params)
+        return _LaneSubscription(self, kind, sources, params)
+
     # -- warmup & observability ---------------------------------------------
     def warmup(self, kinds=KINDS, **params: Any) -> None:
         """Run the power-of-two ladder once: one synthetic dispatch per
@@ -804,6 +996,21 @@ class GraphQueryService:
         the kernels' per-stream scratch (``kernels._build.scratch``).
         Covers the default-params lanes (``params`` here must match what
         clients will send)."""
+
+        def warm(send):
+            v = self.stream.acquire()
+            try:
+                send({"op": "warmup", "stamp": v.stamp, "kinds": list(kinds),
+                      "params": params})
+                self._warm_body(v, kinds, params)
+            finally:
+                self.stream.release(v)
+
+        self._on_lane(warm)
+        self.mark_warm()
+
+    def _warm_body(self, v, kinds, params) -> None:
+        """``warmup``'s ladder on the held version ``v`` (every rank runs it)."""
         pkey = params_key(params)
         sizes: List[int] = []
         b = 1
@@ -811,36 +1018,31 @@ class GraphQueryService:
             sizes.append(b)
             b <<= 1
         sizes.append(L.next_pow2(self.max_batch))
-        v = self.stream.acquire()
-        try:
-            eng = self.stream._engine_for(v, self.backend)
-            n = eng.n
-            for kind in kinds:
-                ladder = [1] if kind == "cc" else sizes
-                for size in ladder:
-                    srcs = [i % max(n, 1) for i in range(size)]
-                    tickets = [
-                        QueryTicket(
-                            "_warmup", kind,
-                            None if kind == "cc" else srcs[i],
-                            params, deadline=time.perf_counter() + 60.0,
-                        )
-                        for i in range(size)
-                    ]
-                    L.execute_batch(eng, kind, tickets, dict(params))
-                    key = L.trace_key(
-                        kind, eng, L.dispatch_pow2(kind, tickets), pkey
+        eng = self.stream._engine_for(v, self.backend)
+        n = eng.n
+        for kind in kinds:
+            ladder = [1] if kind == "cc" else sizes
+            for size in ladder:
+                srcs = [i % max(n, 1) for i in range(size)]
+                tickets = [
+                    QueryTicket(
+                        "_warmup", kind,
+                        None if kind == "cc" else srcs[i],
+                        params, deadline=time.perf_counter() + 60.0,
                     )
-                    if key is not None:
-                        with self._lock:
-                            self._kind_metrics[kind].record_trace_key(
-                                key, warm=False
-                            )
-            if self._carry and n:
-                self._warm_promotion(eng, kinds)
-        finally:
-            self.stream.release(v)
-        self.mark_warm()
+                    for i in range(size)
+                ]
+                L.execute_batch(eng, kind, tickets, dict(params))
+                key = L.trace_key(
+                    kind, eng, L.dispatch_pow2(kind, tickets), pkey
+                )
+                if key is not None:
+                    with self._lock:
+                        self._kind_metrics[kind].record_trace_key(
+                            key, warm=False
+                        )
+        if self._carry and n:
+            self._warm_promotion(eng, kinds)
 
     def _warm_promotion(self, eng, kinds) -> None:
         """Run the carry-forward path once: promotion runs the
@@ -921,4 +1123,70 @@ class GraphQueryService:
                 ),
                 # the port's traversal.TRACES: 0, eager torch traces nothing
                 "jit_traces": TRACES.count,
+                "ranks": self._ranks_stats(),
             }
+
+    def _ranks_stats(self) -> Optional[dict]:
+        """Under ranks: the world, the op count, and on rank 0 the lane's
+        busy seconds (all, and [count, seconds] by op) and the median
+        microseconds of a descriptor's broadcast."""
+        if self._world == 1:
+            return None
+        out = {"rank": self._rank, "world": self._world, "ops": len(self.op_log),
+               "lane_error": None if self._lane_error is None else repr(self._lane_error)}
+        if self._lane is not None:
+            bus = sorted(self._lane.broadcast_us)
+            by_op = {k: list(v) for k, v in self._lane.op_s.items()}
+            out.update(op_s=float(sum(v[1] for v in by_op.values())), op_s_by_op=by_op,
+                       broadcasts=len(bus), broadcast_us_p50=bus[len(bus) // 2] if bus else None)
+        return out
+
+
+class _LaneSubscription:
+    """A ``Subscription`` on rank 0 of a service across ranks, whose open,
+    ``refresh()`` and ``close()`` each run as one op of the collective
+    lane (every rank keeps its own copy of the standing result)."""
+
+    def __init__(self, service: GraphQueryService, kind: str, sources, params: dict):
+        with service._lock:
+            service._subscriptions += 1
+            self.id = service._subscriptions
+        self._svc = service
+        srcs = None if sources is None else [int(s) for s in
+                                             np.asarray(sources, np.int64).reshape(-1)]
+
+        def open_(send):
+            desc = {"op": "subscribe", "id": self.id, "kind": kind, "sources": srcs,
+                    "params": dict(params)}
+            send(desc)
+            self._sub = service.stream.subscribe(kind, sources=srcs, backend=service.backend,
+                                                 **params)
+            desc["stamp"] = self._sub.stamp
+
+        service._lane.run(open_)
+
+    def _op(self, op: str, fn):
+        def run(send):
+            desc = {"op": op, "id": self.id}
+            send(desc)
+            out = fn()
+            desc["stamp"] = self._sub.stamp
+            return out
+
+        return self._svc._lane.run(run)
+
+    def refresh(self):
+        return self._op("refresh", self._sub.refresh)
+
+    def close(self) -> None:
+        if not self._sub._closed:
+            self._op("unsubscribe", self._sub.close)
+
+    def __getattr__(self, name):  # kind, stamp, value, n_full, n_incremental
+        return getattr(self._sub, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

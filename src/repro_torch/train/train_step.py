@@ -9,6 +9,19 @@ jitted).  ``_accumulate`` splits axis 0 of every batch tensor into
 ``n_micro`` slices and sums loss and float32 gradients over them in
 order, where the reference scans, then scales both by ``1 / n_micro``.
 One loss adapter per architecture family.
+
+Across data ranks (``make_train_step(..., mesh=, specs=)`` on a
+``(k, 1)`` ("data", "model") ``DeviceMesh``): ZeRO-1, as the
+reference's cells lay it out (``launch/cells.py:76-79``, ``:383``).
+Each rank takes its 1/k of the global batch (its ``n_micro`` slices of
+it); loss and float32 gradients are all-reduced, a sum then ``* 1/k``,
+so every rank holds the full averaged gradient and the global-norm clip
+sees the one-rank norm; AdamW updates this rank's slice of the
+parameters and of ``m`` and ``v`` where the state's specs shard them
+(``zero1_specs``), whole leaves elsewhere, and the parameters are then
+all-gathered.  Two ranks at one slice each give the one-rank step at
+``n_micro=2`` bit for bit (its ``(0 + g0) + g1`` is the all-reduce's
+``g0 + g1``; AdamW is elementwise).
 """
 from __future__ import annotations
 
@@ -75,18 +88,44 @@ def make_train_step(
     clip_norm: float = 1.0,
     weight_decay: float = 0.1,
     n_micro: int = 1,
+    mesh=None,
+    specs=None,
 ):
     """Generic: loss_of_batch(params, batch) -> scalar.  The step returns
     ``(new TrainState, {"loss", "grad_norm", "lr"})``, the metrics as
-    float32 scalar tensors on the params' device."""
+    float32 scalar tensors on the params' device.
+
+    With ``mesh`` (a ``(k, 1)`` ("data", "model") ``DeviceMesh``) and
+    ``specs`` (the ``TrainState``'s spec tree, ZeRO-1 moments): the
+    data-parallel step of the module docstring; ``n_micro`` is then the
+    slices of each rank's 1/k, and the state holds each rank's
+    ``dist.shardings.place`` of it.  Without ``mesh`` (or at k = 1) the
+    batch split, the all-reduce, the slicing and the gather are each the
+    identity, and are skipped."""
+    from ..dist import shardings as SH
+
+    k, idx, group = (1, 0, None) if mesh is None else data_ranks(mesh)
+    m_specs = None if mesh is None else leaves(specs.opt.m)
+
+    def local(tree):
+        """This rank's ``zero1_specs`` slice of each leaf of ``tree``."""
+        if mesh is None:
+            return tree
+        return unflatten(tree, [SH.shard_of(x, sp, mesh) for x, sp in zip(leaves(tree), m_specs)])
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        loss, grads = _accumulate(loss_of_batch, state.params, batch, n_micro)
+        loss, grads = _accumulate(loss_of_batch, state.params, rank_rows(batch, idx, k),
+                                  n_micro)
+        if k > 1:
+            loss, grads = _mean_over_ranks(loss, grads, group, k)
         grads, gnorm = adamw.clip_by_global_norm(grads, clip_norm)
         lr = lr_schedule(state.opt.step)
         new_params, new_opt = adamw.update(
-            state.opt, grads, state.params, lr, weight_decay=weight_decay
+            state.opt, local(grads), local(state.params), lr, weight_decay=weight_decay
         )
+        if mesh is not None:
+            new_params = unflatten(state.params, [SH.gather_shard(p, sp, mesh)
+                                                  for p, sp in zip(leaves(new_params), m_specs)])
         return TrainState(new_params, new_opt), {
             "loss": loss,
             "grad_norm": gnorm,
@@ -94,6 +133,59 @@ def make_train_step(
         }
 
     return train_step
+
+
+def data_ranks(mesh) -> Tuple[int, int, Any]:
+    """(k, this rank's index, process group) of the batch axes of a mesh
+    whose ``model`` axis has one rank."""
+    from ..dist import shardings as SH
+
+    sizes = SH.axis_sizes(mesh)
+    if sizes.get("model", 1) != 1:
+        raise NotImplementedError("the data-parallel step runs on a (k, 1) "
+                                  "(\"data\", \"model\") mesh")
+    bax = SH.batch_axes(mesh)
+    if len(bax) != 1:
+        raise NotImplementedError(f"one batch axis, not {bax}")
+    names = list(mesh.mesh_dim_names)
+    return sizes[bax[0]], int(mesh.get_coordinate()[names.index(bax[0])]), \
+        mesh.get_group(bax[0])
+
+
+def rank_rows(batch, i: int, k: int):
+    """Rank ``i`` of ``k``'s rows (axis 0) of every batch tensor (the
+    batch itself at k = 1)."""
+    if k == 1:
+        return batch
+
+    def take(x):
+        if not torch.is_tensor(x):
+            return x
+        if x.shape[0] % k:
+            raise ValueError(f"batch axis {x.shape[0]} does not split over {k} ranks")
+        b = x.shape[0] // k
+        return x[i * b:(i + 1) * b]
+
+    return tree_map(take, batch)
+
+
+def _mean_over_ranks(loss, grads, group, k: int):
+    """Loss and float32 gradients averaged over ``group``'s ``k`` ranks in
+    one all-reduce: a sum, then ``* 1/k`` (through host memory where
+    gloo holds a CUDA tensor)."""
+    import torch.distributed as dist
+
+    gl = leaves(grads)
+    flat = torch.cat([loss.float().reshape(1)] + [g.float().reshape(-1) for g in gl])
+    if flat.is_cuda and dist.get_backend(group) == "gloo":
+        host = flat.cpu()
+        dist.all_reduce(host, group=group)
+        flat = host.to(flat.device)
+    else:
+        dist.all_reduce(flat, group=group)
+    flat = flat * (1.0 / k)
+    parts = flat[1:].split([g.numel() for g in gl])
+    return flat[0].clone(), unflatten(grads, [c.view(g.shape) for c, g in zip(parts, gl)])
 
 
 # -- per-family batch adapters ------------------------------------------------

@@ -256,3 +256,119 @@ def test_cuda_roundtrip_and_async_cut(tmp_path, cuda):
     for k in want:
         assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype
         assert_bits_equal(got[k].cpu(), want[k].cpu(), k)
+
+
+# -- specs and re-sharding across the packages ----------------------------------
+
+
+class FakeMesh:
+    """A mesh that is only its axis sizes: what both packages' sharding
+    rules read."""
+
+    def __init__(self, **sizes):
+        self.shape = sizes
+
+
+def _specs_both(js, mesh):
+    """The ZeRO-1 TrainState specs of ``js`` by each package's own rules."""
+    from repro.launch import cells as jcells
+    from repro_torch.launch import cells as tcells
+
+    jspecs = jcells._lm_state_specs(jsmol.REDUCED, mesh, js.params)
+    tparams = tL.params_from_numpy(jax.tree.map(np.asarray, js.params), device=CPU)
+    return jspecs, tcells._lm_state_specs(jsmol.REDUCED, mesh, tparams)
+
+
+def _port_state(js):
+    return tTS.TrainState(
+        tL.params_from_numpy(jax.tree.map(np.asarray, js.params), device=CPU),
+        tTS.adamw.AdamWState(torch.tensor(int(js.opt.step), dtype=torch.int32),
+                             tL.params_from_numpy(jax.tree.map(np.asarray, js.opt.m), device=CPU),
+                             tL.params_from_numpy(jax.tree.map(np.asarray, js.opt.v), device=CPU)))
+
+
+def _manifest_specs(d, step):
+    import json
+
+    with open(os.path.join(d, f"step_{step:09d}", "manifest.json")) as f:
+        return [leaf["spec"] for leaf in json.load(f)["leaves"]]
+
+
+@pytest.mark.parametrize("axes", [{"data": 2, "model": 1}, {"pod": 2, "data": 2, "model": 1}])
+def test_save_writes_the_reference_spec_form(tmp_path, axes):
+    """The same state and the same specs (each package's rules) give the
+    same manifest specs from both packages: ``list(P)``, a tuple entry as
+    a list; without specs every leaf's spec is null, as before."""
+    js = reference_state()
+    jspecs, tspecs = _specs_both(js, FakeMesh(**axes))
+    jckpt.save(str(tmp_path / "ref"), 2, js, jspecs)
+    ckpt.save(str(tmp_path / "port"), 2, _port_state(js), tspecs)
+    got, want = _manifest_specs(tmp_path / "port", 2), _manifest_specs(tmp_path / "ref", 2)
+    assert got == want
+    assert any(s and any(e in ("data", ["pod", "data"]) for e in s) for s in got)
+    ckpt.save(str(tmp_path / "plain"), 2, _port_state(js))
+    assert set(map(str, _manifest_specs(tmp_path / "plain", 2))) == {"None"}
+
+
+def test_port_checkpoint_with_specs_restores_in_the_reference_on_a_mesh(tmp_path):
+    """A port checkpoint with ZeRO-1 specs restores in the reference with
+    ``restore(mesh=<1x1 mesh>, target_specs=...)``: values bit for bit,
+    each leaf's ``sharding.spec`` the one written."""
+    from jax.sharding import PartitionSpec as jP
+
+    js = reference_state()
+    _, tspecs = _specs_both(js, FakeMesh(data=2, model=1))
+    ts = _port_state(js)
+    ckpt.save(str(tmp_path), 2, ts, tspecs)
+    written = _manifest_specs(tmp_path, 2)
+    template = jTS.init_state(jax.tree.map(jnp.zeros_like, js.params))
+    treedef = jax.tree_util.tree_structure(template)
+    target = jax.tree_util.tree_unflatten(
+        treedef, [jP(*(tuple(e) if isinstance(e, list) else e for e in s)) for s in written])
+    mesh1 = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    step, restored = jckpt.restore(str(tmp_path), mesh=mesh1, target_specs=target,
+                                   template=template)
+    assert step == 2
+    for (path, t), r, s in zip(_tree.flatten_with_paths(ts), jax.tree.leaves(restored),
+                               written):
+        assert_bits_equal(t, np.asarray(r), path)
+        assert r.sharding.spec == jP(*(tuple(e) if isinstance(e, list) else e for e in s))
+
+
+def restore_on_ranks(directory: str) -> dict:
+    """One rank of a 2-rank spawn: the checkpoint placed by its manifest's
+    specs on a (2, 1) mesh; this rank's leaves and coordinate."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.rank_mesh((2, 1), ("data", "model"), device="cpu")
+    step, flat = ckpt.restore(directory, device=CPU, mesh=mesh)
+    return {"step": step, "coord": mesh.get_coordinate()[0],
+            "leaves": {p: t.numpy() for p, t in flat.items()}}
+
+
+def test_reference_checkpoint_with_specs_restores_on_two_port_ranks(tmp_path):
+    """A reference checkpoint saved with its ZeRO-1 specs restores into
+    the port on 2 gloo ranks: each rank holds its slice of every sharded
+    leaf (its half along the spec's "data" dim) and the whole of the
+    rest."""
+    from test_torch_ranks import spawn_ranks
+
+    js = reference_state()
+    jspecs, _ = _specs_both(js, FakeMesh(data=2, model=1))
+    jckpt.save(str(tmp_path / "ck"), 2, js, jspecs)
+    paths, full, _ = jckpt._flatten_with_paths(js)
+    written = _manifest_specs(tmp_path / "ck", 2)
+    res = spawn_ranks(restore_on_ranks, 2, tmp_path, str(tmp_path / "ck"))
+    sliced = 0
+    for r, out in enumerate(res):
+        assert out["step"] == 2 and out["coord"] == r
+        for p, a, spec in zip(paths, full, written):
+            a = np.asarray(a)
+            want = a
+            if spec and "data" in spec:
+                d = spec.index("data")
+                c = a.shape[d] // 2
+                want = np.take(a, range(r * c, (r + 1) * c), axis=d)
+                sliced += 1
+            assert_bits_equal(out["leaves"][p], want, f"rank {r} {p}")
+    assert sliced > 0
