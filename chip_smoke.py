@@ -2704,8 +2704,11 @@ RANK_JOBS = {
     "moe_gloo": (2, "gloo"),  # moe_shardmap on a 2x1 mesh, REDUCED width
     "train_one": (1, "nccl"),  # ranks_train: the one-rank step at n_micro=2
     "train_gloo": (2, "gloo"),  # ranks_train: ZeRO-1 on a (2, 1) mesh
+    "tp_one": (1, "nccl"),  # ranks_tp: qwen2.5-3b on one rank, the answers held to
+    "tp_gloo": (2, "gloo"),  # ranks_tp: the model axis, a (1, 2) mesh
 }
 TRAIN_JOBS = ("train_one", "train_gloo")  # started after the others end
+TP_JOBS = ("tp_one", "tp_gloo")  # started when the training children end
 # engines_gloo (15.3 GB a rank) starts when engines_nccl (23.2 GB) ends:
 # beside the stream and MoE children and the parent, both at once came
 # within 0.4 GB of the card's 80 GB
@@ -2724,6 +2727,59 @@ RANK_STREAM_LOG_N = 16  # cut from sharded_stream's 2^18: each rank builds its o
 RANK_STREAM_DRAWS = 2**19
 RANK_COMM = (15, 32)  # the compressed engines' rMAT communities: 32 of 2^15 vertices
 MOE_RANK_TOL = {"bfloat16": 1e-2, "float32": 1e-5}  # of max|moe.py|
+# ranks_tp: qwen2.5-3b FULL bf16 (36 layers) served on a (1, 2) mesh, one
+# kv head a rank: make_prefill at B 1 x 2048, then generate at B 8 on a
+# 4096-position cache with the flash kernel, the cache holding a seeded
+# history that ends, row by row, between TP_CACHE - TP_HISTORY_SPREAD and
+# TP_CACHE - TP_PROMPT - TP_NEW positions (generate's own steps fill the
+# rest), so that every serve step reads about 4,000 keys a row; then its
+# full width in float32 with the depth cut to 4 layers (card memory: three processes
+# hold a copy of the state) trained at a global B 4 x S 512, n_micro 2,
+# 3 steps; the ranks save their state after step 2 and their parameters
+# after step 3, and the one-rank child holds its own against both and
+# takes step 3 again from the ranks' checkpoint.
+TP_SERVE_B, TP_PROMPT, TP_NEW, TP_CACHE, TP_PREFILL_S = 8, 4, 4, 4096, 2048
+TP_HISTORY_SPREAD = 128
+TP_TRAIN_LAYERS, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 4, 512, 3
+TP_CKPT = RANKS_DIR / "tp_ckpt"  # the ranks' state after step 2
+TP_FINAL = RANKS_DIR / "tp_final"  # the ranks' parameters after step 3
+# Tolerances, stated before the first run on the card.  Serving (bf16):
+# logits within TP_BF16_RTOL * max|one rank's| (a bf16 model of random
+# weights drifts with the order of its sums; here each rank's
+# row-parallel products round a partial sum to bf16 before the
+# all-reduce).  First stated as lm_serve's LM_BF16_RTOL, 0.25; then
+# 0.05, twice the 2.6% that the card runs on an almost empty cache read;
+# the first run on the filled cache read 5.3% at decode step 0, so now
+# twice that.  The filled cache's rows are held tighter by row 12's
+# check at their length (FLASH_TOL) and by the float32 decode below.
+# The greedy tokens equal up to the first step whose
+# one-rank margin between the two picks is within twice the step's
+# measured logit difference (no argmax of logits that close can be
+# held to either pick; the steps after it are fed other tokens).
+# Training (float32, sums over the heads, d_ff and vocab in another
+# order): losses and grad norms rtol TP_LOSS_RTOL; every leaf rtol
+# TP_LEAF_RTOL with atol TP_LEAF_RTOL * max|leaf|.  Changed after the
+# first card run, where 6 of the embedding table's 311 M elements missed
+# the first statement (a parameter's atol at least 1e-2 of the learning
+# rate summed over the steps; 2.0e-5 off, its m and v within 6% of their
+# tolerance): AdamW moves an element by about lr whatever its gradient,
+# in a direction resolved only as well as its first moment, so a
+# parameter element's atol is at least the steps' summed lr times the
+# relative tolerance of the one rank's m there, doubled for v's share:
+# lr_sum * min(1, 2 * TP_LEAF_RTOL * max|m| / |m|).  Capped since at
+# TP_PARAM_ATOL_CAP * lr_sum (lr_sum over the steps the state took), so
+# that a rank that skipped an update (about lr an element) still fails:
+# lr_sum * min(TP_PARAM_ATOL_CAP, 2 * TP_LEAF_RTOL * max|m| / |m|).
+TP_LOSS_RTOL, TP_LEAF_RTOL = 1e-5, 1e-4
+TP_PARAM_ATOL_CAP = 0.1
+TP_BF16_RTOL = 0.1
+# The decode again with float32 weights at TP_TRAIN_LAYERS layers (added
+# after the first card run, whose bf16 tokens parted at a near tie; stated
+# before its first run): greedy tokens equal, logits within one bf16
+# rounding's class, FLASH_TOL["bfloat16"] * max|logits|, as generate's
+# cache is bf16 on both sides and a key or value a float32 sum apart may
+# round to the neighbouring bf16 value on one of them.
+TP_F32_LOGITS_RTOL = 1e-2
 
 
 def digest(x) -> str:
@@ -3230,8 +3286,367 @@ def rank_moe(tag: str) -> dict:
 
 
 
+def _await_commit(path: Path, what: str) -> float:
+    """Wait for a checkpoint step's COMMITTED marker; the seconds waited."""
+    t = time.perf_counter()
+    while not (path / "COMMITTED").exists():
+        if time.perf_counter() - t > RANK_TIMEOUT_S:
+            raise AssertionError(f"ranks_tp: no {what} checkpoint at {path}")
+        time.sleep(0.5)
+    return time.perf_counter() - t
+
+
+def _tp_serve(mesh, out: dict) -> None:
+    """ranks_tp's serving half (``rank_tp``)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import qwen2_5_3b as qw
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode as serve
+
+    cfg = qw.FULL
+    rank0 = mesh is None or mesh.get_rank() == 0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    params = T.init_params(gen, cfg, dtype=torch.bfloat16, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (TP_SERVE_B, TP_PROMPT), generator=gen,
+                           device="cuda")
+    long_prompt = torch.randint(0, cfg.vocab, (1, TP_PREFILL_S), generator=gen, device="cuda")
+    if mesh is not None:
+        params = spmd.distribute(params, SH.spec_tree_like(SH.lm_param_specs(cfg, mesh),
+                                                           params), mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    local = [t.to_local() if spmd.is_dtensor(t) else t for t in leaves(params)]
+    out["serve_param_bytes"] = sum(t.numel() * t.element_size() for t in local)
+    on_ranks = spmd.running if mesh is not None else contextlib.nullcontext
+
+    def full(t):
+        return t.full_tensor() if spmd.is_dtensor(t) else t
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with on_ranks():
+        logits = full(serve.make_prefill(cfg)(params, long_prompt)).float()
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t
+    out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"ranks_tp: non-finite prefill logits on {out['tag']}")
+    if rank0:
+        np.save(RANKS_DIR / f"{out['job']}_prefill.npy", logits.cpu().numpy())
+    del logits
+    # generate, each serve step's logits kept (the local shards) and timed
+    steps, step_s = [], []
+    plain_step = T.decode_step
+
+    def recording(*a, **k):
+        t0 = time.perf_counter()
+        logits, cache = plain_step(*a, **k)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(logits)
+        return logits, cache
+
+    plain_init = T.init_kv_cache
+    history_lens, caches = [], []
+
+    def with_history(cfg_, batch, max_len, dtype=torch.bfloat16, device=None, mesh=None):
+        """generate's cache holding a seeded history (the same on every
+        process), laid out as ``init_kv_cache`` lays it out"""
+        t0 = time.perf_counter()
+        hist = plain_init(cfg_, batch, max_len, dtype=dtype, device=device)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 47)
+        for i in range(cfg_.n_layers):
+            hist["k"][i].normal_(generator=g)
+            hist["v"][i].normal_(generator=g)
+        hist["len"] = torch.randint(max_len - TP_HISTORY_SPREAD,
+                                    max_len - TP_PROMPT - TP_NEW + 1, (batch,), generator=g,
+                                    device="cuda", dtype=torch.int32)
+        history_lens.append(hist["len"].tolist())
+        if mesh is not None:
+            seq = SH.decode_cache_seq_shard(cfg_, mesh, batch)
+            hist = spmd.distribute(hist, SH.lm_cache_specs(cfg_, mesh, seq_shard=seq,
+                                                           batch_size=batch), mesh)
+        torch.cuda.synchronize()
+        out.setdefault("history_s", []).append(time.perf_counter() - t0)
+        caches.append(hist)
+        return hist
+
+    fd.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    T.decode_step, T.init_kv_cache = recording, with_history
+    try:
+        t = time.perf_counter()
+        toks = serve.generate(params, cfg, prompt, TP_NEW, max_len=TP_CACHE,
+                              use_flash_kernel=True)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t
+    finally:
+        T.decode_step, T.init_kv_cache = plain_step, plain_init
+    out["start_lens"] = history_lens[0]
+    # row 12 at the history's length: layer 0's cache and a seeded query,
+    # on the ranks each rank's kv head under local_map, against the plain
+    # version on the whole layer (gathered).  The lengths stop where the
+    # seeded history does, so every process reads the same keys (the
+    # positions generate wrote after it hold keys of another order of
+    # sums).  Comparisons, so the launches are put back.
+    lens = torch.tensor(history_lens[0], dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    q = (2 * torch.randn(TP_SERVE_B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                         cfg.head_dim, generator=g, device="cuda")).to(torch.bfloat16)
+    saved = dict(fd.LAUNCHES)
+    with on_ranks():
+        k0, v0 = caches[0]["k"][0], caches[0]["v"][0]
+        if mesh is None:
+            got = fd.flash_decode_cache(q, k0, v0, lens)
+        else:
+            got = full(spmd.flash_decode_on_local_shards(
+                spmd.distribute(q, SH.P(None, None, None, None), mesh), k0, v0, lens))
+        k0, v0 = full(k0), full(v0)
+    fd.LAUNCHES.update(saved)
+    want = fd.flash_decode_cache_plain(q, k0, v0, lens)
+    out["row12_history"] = {"lens_min_max": [int(lens.min()), int(lens.max())],
+                            "max_abs_err": check_close(got, want, f"ranks_tp {out['tag']} row 12 "
+                                                       "at the history's length",
+                                                       **flash_tol(want)),
+                            "max_abs": float(want.float().abs().max())}
+    if rank0:
+        np.save(RANKS_DIR / f"{out['job']}_row12.npy", got.float().cpu().numpy())
+    del caches[:], k0, v0, got, want
+    out["serve_launches"] = dict(fd.LAUNCHES)
+    out["generate_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["decode_step_s"] = step_s
+    out["decode_ms_per_step"] = 1e3 * steady(step_s)
+    out["serve_steps"] = len(steps)
+    # k and v in bf16, by the cache's layout: the kv heads over the mesh
+    out["cache_bytes"] = 2 * cfg.n_layers * TP_SERVE_B * TP_CACHE * cfg.n_kv_heads \
+        * cfg.head_dim * 2 // (1 if mesh is None else mesh.size())
+    with on_ranks():
+        logits = torch.stack([full(x).float() for x in steps])
+    if rank0:
+        np.save(RANKS_DIR / f"{out['job']}_decode.npy", logits.cpu().numpy())
+        np.save(RANKS_DIR / f"{out['job']}_tokens.npy", toks.cpu().numpy())
+    del params, steps, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same decode in float32 at the training phase's cut depth, where
+    # the two programs' logits differ by float32 sums only: tokens equal
+    cfg32 = dataclasses.replace(cfg, n_layers=TP_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    params = T.init_params(gen, cfg32, dtype=torch.float32, device="cuda")
+    if mesh is not None:
+        params = spmd.distribute(params, SH.spec_tree_like(SH.lm_param_specs(cfg32, mesh),
+                                                           params), mesh)
+    steps, step_s = [], []  # the recording's lists, anew
+    T.decode_step, T.init_kv_cache = recording, with_history
+    try:
+        toks = serve.generate(params, cfg32, prompt, TP_NEW, max_len=TP_CACHE,
+                              use_flash_kernel=True)
+    finally:
+        T.decode_step, T.init_kv_cache = plain_step, plain_init
+    out["f32_decode_ms_per_step"] = 1e3 * steady(step_s)
+    with on_ranks():
+        logits = torch.stack([full(x).float() for x in steps])
+    if rank0:
+        np.save(RANKS_DIR / f"{out['job']}_decode32.npy", logits.cpu().numpy())
+        np.save(RANKS_DIR / f"{out['job']}_tokens32.npy", toks.cpu().numpy())
+    del params, steps, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tp_train(mesh, out: dict) -> None:
+    """ranks_tp's training half (``rank_tp``)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch._tree import flatten_with_paths, leaves
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import qwen2_5_3b as qw
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist import spmd
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(qw.FULL, n_layers=TP_TRAIN_LAYERS)
+    args = launch.parser().parse_args([
+        "--arch", "qwen2.5-3b", "--steps", str(TP_TRAIN_STEPS), "--batch", str(TP_TRAIN_BATCH),
+        "--seq", str(TP_TRAIN_SEQ), "--n-micro", "2", "--warmup", "1", "--device", "cuda",
+        "--seed", str(SEED)])
+    params, step_fn, batch_fn = launch.make_lm_run(cfg, args, mesh)
+    # make_lm_run's schedule
+    lr = adamw.wsd_schedule(args.warmup, args.steps, max(args.steps // 10, 1), args.lr)
+    out["lr_sum"] = float(sum(float(lr(s)) for s in range(TP_TRAIN_STEPS)))
+    out["lr_sum_step2"] = float(sum(float(lr(s)) for s in range(2)))
+    specs = None if mesh is None else launch.train_specs("lm", cfg, params, mesh)
+    state = TS.init_state(params)
+    if mesh is not None:
+        state = SH.place(state, specs, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["opt_bytes"] = sum(t.numel() * t.element_size()
+                           for t in leaves(state.opt.m) + leaves(state.opt.v))
+    out["train_state_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state))
+    times, hist, peaks, coll, kinds = [], [], [], [], {}
+    at_step2 = None
+    for step in range(TP_TRAIN_STEPS):
+        if step == 2:
+            if mesh is not None:
+                t = time.perf_counter()
+                ckpt.save(str(TP_CKPT), 2, state, specs, mesh=mesh)
+                out["save_s"] = time.perf_counter() - t
+            else:  # held against the ranks' checkpoint below, from host memory
+                at_step2 = [x.cpu() for x in leaves(state)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with spmd.running() if mesh is not None else contextlib.nullcontext() as mode:
+            state, m = step_fn(state, batch_fn(step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        peaks.append(torch.cuda.max_memory_allocated())
+        hist.append({k: float(v) for k, v in m.items()})
+        if mode is not None:
+            total, kinds = hlo_analysis.collective_bytes(mode.collectives)
+            coll.append(total)
+            out["host_copied_per_step"] = dict(mode.host_copied)
+    out.update(train_step_s=times, train_s_per_step=steady(times), train_steps=hist,
+               train_peak_bytes=max(peaks), coll_bytes_per_step=coll, coll_kinds=kinds)
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"ranks_tp: a non-finite loss {hist}")
+    if mesh is not None:
+        t = time.perf_counter()
+        ckpt.save(str(TP_FINAL), TP_TRAIN_STEPS, state.params, specs.params, mesh=mesh)
+        out["final_save_s"] = time.perf_counter() - t
+        return
+    # the one-rank child: the ranks' state after step 2 and their
+    # parameters after step 3 against its own (kept in host memory: three
+    # processes share the card), then step 3 again from the ranks'
+    # checkpoint on this world
+    print(json.dumps({"tag": out["tag"], "train_steps": hist, "s": times}), file=sys.stderr,
+          flush=True)
+    paths = [p for p, _ in flatten_with_paths(state)]
+    template = SH.map_leaves(lambda x: torch.empty_like(x, device="meta"), state)
+    final = [x.cpu() for x in leaves(state.params)]
+    final_m = dict(zip([p for p in paths if p.startswith(".opt/.m")],
+                       [x.cpu() for x in leaves(state.opt.m)]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ckpt_wait_s"] = _await_commit(TP_CKPT / "step_000000002", "step-2")
+    t = time.perf_counter()
+    _, restored = ckpt.restore(str(TP_CKPT), 2, device="cuda", template=template)
+    out["restore_s"] = time.perf_counter() - t
+    out["step2_err"] = _leaf_errors(leaves(restored), at_step2, paths, out["lr_sum_step2"],
+                                    dict(zip(paths, at_step2)))
+    del at_step2
+    restored, m = step_fn(restored, batch_fn(2))
+    out["resumed_step3"] = {k: float(v) for k, v in m.items()}
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["final_wait_s"] = _await_commit(TP_FINAL / f"step_{TP_TRAIN_STEPS:09d}", "final")
+    _, theirs = ckpt.restore(str(TP_FINAL), TP_TRAIN_STEPS, device="cuda",
+                             template=template.params)
+    out["final_err"] = _leaf_errors(leaves(theirs), final,
+                                    [p for p in paths if p.startswith(".params")],
+                                    out["lr_sum"], final_m)
+
+
+def _leaf_errors(got, want, paths, lr_sum: float, m_of: dict) -> dict:
+    """Each float leaf's largest error over its tolerance (ranks_tp's
+    training tolerance: 1 or below passes), by kind of leaf (the
+    parameters, ``m`` and ``v``) with the worst leaf's path, its largest
+    absolute error and its elements over the tolerance; how many leaves
+    differ at all; whether the step counters are equal.  ``m_of``: the
+    one rank's first moments by path, which set a parameter element's
+    least tolerance (the statement beside ``TP_LOSS_RTOL``); ``lr_sum``:
+    the learning rate summed over the steps the state took."""
+    import torch
+
+    kinds, differ, step_equal = {}, 0, True
+    for g, w, p in zip(got, want, paths):
+        w = w.to(g.device)  # one leaf at a time from host memory
+        if not w.is_floating_point():
+            step_equal &= bool(torch.equal(g, w))
+            continue
+        d = (g.double() - w.double()).abs()
+        rel = TP_LEAF_RTOL * float(w.abs().max())
+        atol = torch.full_like(d, rel)
+        if p.startswith(".params"):
+            # the step's direction is as resolved as the first moment: lr
+            # times its relative tolerance (twice, for v's share)
+            m = m_of[".opt/.m" + p[len(".params"):]].to(g.device).double().abs()
+            step = lr_sum * torch.clamp(2 * TP_LEAF_RTOL * m.max() / m, max=TP_PARAM_ATOL_CAP)
+            atol = torch.maximum(atol, step)
+        ratio = d / (atol + TP_LEAF_RTOL * w.double().abs())
+        kind = p.split("/")[0] if p.startswith(".params") else "/".join(p.split("/")[:2])
+        k = kinds.setdefault(kind, {"worst_over_tol": 0.0, "max_abs": 0.0})
+        k["max_abs"] = max(k["max_abs"], float(d.max()))
+        if float(ratio.max()) > k["worst_over_tol"]:
+            k.update(worst_over_tol=float(ratio.max()), worst_leaf=p,
+                     its_max_abs=float(d.max()), its_max_abs_leaf=float(w.abs().max()),
+                     its_elements_over=int((ratio > 1).sum()), its_elements=w.numel(),
+                     its_elements_by_m=int((atol > rel).sum()),
+                     its_elements_at_cap=int((atol >= TP_PARAM_ATOL_CAP * lr_sum).sum())
+                     if p.startswith(".params") else 0)
+        differ += int(not torch.equal(g, w))
+    return {"worst_over_tol": max(k["worst_over_tol"] for k in kinds.values()),
+            "by_kind": kinds, "leaves_differ": differ, "leaves": len(paths),
+            "step_equal": step_equal}
+
+
+def rank_tp(tag: str) -> dict:
+    """ranks_tp: the cells' model-axis layouts with values.  ``tp_gloo``:
+    two gloo ranks sharing the card on a (1, 2) ("data", "model") mesh,
+    the parameters DTensors by ``lm_param_specs`` (heads, d_ff and vocab
+    over ``model``; qwen2.5-3b's 2 kv heads, one a rank), decode on a
+    kv-head-sharded cache through the flash kernel under ``local_map``
+    (row 12 launched on each rank's head), training by
+    ``make_train_step(mesh=, specs=)``; ``tp_one``: one NCCL rank, the
+    plain program on whole tensors.  Serving then training
+    (``_tp_serve``, ``_tp_train``); the answers go to build/ranks/."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    world = dist.get_world_size()
+    mesh = None if world == 1 else mesh_lib.rank_mesh((1, world), ("data", "model"),
+                                                      device="cuda")
+    out = {"tag": tag, "job": tag.rsplit("_", 1)[0], "world": world}
+    t = time.perf_counter()
+    _tp_serve(mesh, out)
+    out["serve_s"] = time.perf_counter() - t
+    # progress on the child's error output, where a failed phase shows it
+    print(json.dumps({k: out[k] for k in ("tag", "serve_s", "prefill_s", "decode_ms_per_step",
+                                          "serve_launches", "generate_peak_bytes")}),
+          file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    _tp_train(mesh, out)
+    out["train_s"] = time.perf_counter() - t
+    from repro_torch.dist import spmd
+
+    out["host_copied"] = dict(spmd.HOST_COPIED)
+    if mesh is not None:
+        dist.barrier()
+    out["child_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 RANK_FNS = {"engines": rank_engines, "stream": rank_stream, "moe": rank_moe,
-            "train": rank_train}
+            "train": rank_train, "tp": rank_tp}
 
 
 def rank_job(job: str, rank: int) -> int:
@@ -3269,13 +3684,18 @@ def start_rank_jobs(jobs=None) -> dict:
     ``LATE_JOBS``), started at once, each a process that is stopped when
     this one exits; each reads a copy of the autotuner's table."""
     if jobs is None:
-        jobs = [j for j in RANK_JOBS if j not in TRAIN_JOBS and j not in LATE_JOBS]
+        jobs = [j for j in RANK_JOBS
+                if j not in TRAIN_JOBS + TP_JOBS and j not in LATE_JOBS]
     jobs = list(jobs)
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
     for f in RANKS_DIR.glob("*"):
         if any(f.name.startswith(p) for j in jobs for p in (f"{j}_", f"{j}.", f"tune_{j}_")):
             shutil.rmtree(f) if f.is_dir() else f.unlink()
     if "train_gloo" in jobs:
         shutil.rmtree(TRAIN_RANK_CKPT, ignore_errors=True)
+    if "tp_gloo" in jobs:
+        for d in (TP_CKPT, TP_FINAL):
+            shutil.rmtree(d, ignore_errors=True)
     procs = {}
     for job in jobs:
         world = RANK_JOBS[job][0]
@@ -3284,6 +3704,8 @@ def start_rank_jobs(jobs=None) -> dict:
             if TUNE_TABLE.exists():
                 shutil.copy(TUNE_TABLE, tune)
             env = dict(os.environ, OMP_NUM_THREADS="2", REPRO_TORCH_AUTOTUNE_CACHE=str(tune))
+            if job in TP_JOBS:  # three processes' states on one card, freed and made anew
+                env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
             err = open(RANKS_DIR / f"{job}_{r}.err", "w")
             p = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-job",
                                   job, str(r)], env=env, stdout=err, stderr=subprocess.STDOUT)
@@ -3484,6 +3906,185 @@ def phase_ranks_train(procs: dict, t0: float) -> dict:
            "save_extra_bytes": [r["save_extra_bytes"] for r in ranks],
            "one_rank": {k: one[k] for k in keys} | {"steps": one["steps"]},
            "ranks": [{k: r[k] for k in keys} | {"steps": r["steps"]} for r in ranks]}
+    emit(out)
+    return out
+
+
+def tp_dryrun_bytes() -> dict:
+    """The dry run's count of one ``ranks_tp`` train step on a (1, 2)
+    mesh: the same ``make_train_step(mesh=, specs=)`` program on meta
+    tensors over a 2-rank ``fake`` process group (``launch.dryrun``), its
+    collectives as the reference's HLO accounting counts them per rank."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import qwen2_5_3b as qw
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist import spmd
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(qw.FULL, n_layers=TP_TRAIN_LAYERS)
+    t = time.perf_counter()
+    with dryrun.fake_world(2):
+        mesh = DeviceMesh("cuda", torch.arange(2).reshape(1, 2),
+                          mesh_dim_names=("data", "model"))
+        params = T.init_params(None, cfg, dtype=torch.float32, device="meta")
+        specs = launch.train_specs("lm", cfg, params, mesh)
+        state = SH.place(TS.init_state(params), specs, mesh)
+        step = TS.make_train_step(TS.lm_loss(cfg), adamw.wsd_schedule(1, TP_TRAIN_STEPS, 1, 3e-4),
+                                  n_micro=2, mesh=mesh, specs=specs)
+        shape = (TP_TRAIN_BATCH, TP_TRAIN_SEQ)
+        batch = {k: torch.empty(shape, dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        with implicit_replication(), dryrun.CostMode() as cm:
+            step(state, batch)
+    total, kinds = hlo_analysis.collective_bytes(cm.collectives)
+    return {"coll_bytes": total, "kinds": kinds, "flops": cm.flops, "bytes": cm.bytes,
+            "count_s": time.perf_counter() - t}
+
+
+def phase_ranks_tp(procs: dict, t0: float, smi: str) -> dict:
+    """ranks_tp (``rank_tp``): the two ranks against the one-rank child
+    within the tolerances stated beside ``TP_LOSS_RTOL``; row 12 launched
+    on each rank, once a layer a serve step; each rank's parameters,
+    optimizer and cache bytes about half the one-rank child's; the
+    collective bytes each rank moved a train step beside the dry run's
+    count of the same step (``tp_dryrun_bytes``, counted here while the
+    children run)."""
+    dry = tp_dryrun_bytes()
+    res = wait_rank_jobs(procs, TP_JOBS, t0)
+    one, ranks = res["tp_one"][0], res["tp_gloo"]
+    from repro_torch.configs import qwen2_5_3b as qw
+
+    n_layers = qw.FULL.n_layers
+    # serving
+    want = np.load(RANKS_DIR / "tp_one_prefill.npy")
+    got = np.load(RANKS_DIR / "tp_gloo_prefill.npy")
+    scale = float(np.abs(want).max())
+    prefill_err = float(np.abs(got - want).max())
+    if not prefill_err <= TP_BF16_RTOL * scale:
+        raise AssertionError(f"ranks_tp: prefill logits off by {prefill_err} (max {scale})")
+    w_tok = np.load(RANKS_DIR / "tp_one_tokens.npy")
+    g_tok = np.load(RANKS_DIR / "tp_gloo_tokens.npy")
+    w_log = np.load(RANKS_DIR / "tp_one_decode.npy")
+    g_log = np.load(RANKS_DIR / "tp_gloo_decode.npy")
+    new_w, new_g = w_tok[:, TP_PROMPT:], g_tok[:, TP_PROMPT:]
+    diverged = [j for j in range(TP_NEW) if not np.array_equal(new_w[:, j], new_g[:, j])]
+    # serve step s's logits pick new token s - TP_PROMPT + 1 (0-based); the
+    # inputs agree up to and including the step that picks the first
+    # differing token
+    last = len(w_log) if not diverged else TP_PROMPT - 1 + diverged[0] + 1
+    step_err = [float(np.abs(g_log[s] - w_log[s]).max()) for s in range(last)]
+    step_max = [float(np.abs(w_log[s]).max()) for s in range(last)]
+    over = [(s, e, m) for s, (e, m) in enumerate(zip(step_err, step_max))
+            if not e <= TP_BF16_RTOL * m]
+    if over:
+        raise AssertionError(f"ranks_tp: decode logits off by more than {TP_BF16_RTOL} of "
+                             f"their max at (step, err, max) {over}; every step's {step_err} "
+                             f"of {step_max}")
+    # row 12 on each rank's kv head at the history's length against the
+    # one rank's launch on both heads: each within one bf16 rounding of
+    # the plain version (checked in the children), so within two
+    want12 = np.load(RANKS_DIR / "tp_one_row12.npy")
+    row12_err = float(np.abs(np.load(RANKS_DIR / "tp_gloo_row12.npy") - want12).max())
+    if not row12_err <= FLASH_TOL["bfloat16"] * 2 * float(np.abs(want12).max()):
+        raise AssertionError(f"ranks_tp: row 12 on the ranks' heads off by {row12_err} of the "
+                             f"one rank's (max {float(np.abs(want12).max())})")
+    margin = None
+    if diverged:
+        s, j = last - 1, diverged[0]
+        rows = np.nonzero(new_w[:, j] != new_g[:, j])[0]
+        margin = max(float(w_log[s][b, new_w[b, j]] - w_log[s][b, new_g[b, j]]) for b in rows)
+        if margin > 2 * step_err[s]:
+            raise AssertionError(f"ranks_tp: token {j} differs at a one-rank margin of {margin}, "
+                                 f"beyond twice the step's logit difference {step_err[s]}")
+    # the float32 decode at the cut depth: tokens equal, logits within
+    # TP_F32_LOGITS_RTOL of the largest
+    w32 = np.load(RANKS_DIR / "tp_one_decode32.npy")
+    g32 = np.load(RANKS_DIR / "tp_gloo_decode32.npy")
+    f32_err = float(np.abs(g32 - w32).max())
+    f32_max = float(np.abs(w32).max())
+    if not f32_err <= TP_F32_LOGITS_RTOL * f32_max:
+        raise AssertionError(f"ranks_tp: float32 decode logits off by {f32_err} (max {f32_max})")
+    if not np.array_equal(np.load(RANKS_DIR / "tp_one_tokens32.npy"),
+                          np.load(RANKS_DIR / "tp_gloo_tokens32.npy")):
+        raise AssertionError("ranks_tp: the float32 decode's greedy tokens differ")
+    per_step = TP_PROMPT + TP_NEW - 1
+    for r in ranks:
+        if r["start_lens"] != one["start_lens"]:
+            raise AssertionError(f"ranks_tp: rank {r['rank']}'s history ends at "
+                                 f"{r['start_lens']}, one rank's at {one['start_lens']}")
+        if r["serve_launches"]["flash_decode"] != per_step * n_layers:
+            raise AssertionError(f"ranks_tp: rank {r['rank']} launched row 12 "
+                                 f"{r['serve_launches']} times, not {per_step * n_layers}")
+        for k in ("serve_param_bytes", "opt_bytes"):
+            if r[k] > 0.55 * one[k]:
+                raise AssertionError(f"ranks_tp: rank {r['rank']} {k} {r[k]} of {one[k]}")
+    # training
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for r in ranks
+                   for a, b in zip(r["train_steps"], one["train_steps"])
+                   for k in ("loss", "grad_norm"))
+    if loss_err > TP_LOSS_RTOL:
+        raise AssertionError(f"ranks_tp: losses off by {loss_err} of one rank's")
+    for what in ("step2_err", "final_err"):
+        e = one[what]
+        if e["worst_over_tol"] > 1 or not e["step_equal"]:
+            raise AssertionError(f"ranks_tp: the ranks' {what[:-4]} leaves {e}")
+    resumed = one["resumed_step3"]
+    resume_err = abs(resumed["loss"] - one["train_steps"][2]["loss"]) / abs(
+        one["train_steps"][2]["loss"])
+    if resume_err > TP_LOSS_RTOL:
+        raise AssertionError(f"ranks_tp: step 3 from the ranks' checkpoint {resumed} against "
+                             f"{one['train_steps'][2]}")
+    for d in (TP_CKPT, TP_FINAL):
+        shutil.rmtree(d, ignore_errors=True)
+    keys = ("world", "serve_param_bytes", "prefill_s", "prefill_peak_bytes", "generate_s",
+            "decode_ms_per_step", "decode_step_s", "f32_decode_ms_per_step", "history_s",
+            "generate_peak_bytes", "cache_bytes",
+            "serve_launches", "opt_bytes", "train_state_bytes", "train_s_per_step",
+            "train_step_s", "train_peak_bytes", "child_peak_bytes", "serve_s", "train_s",
+            "wall_s")
+    out = {"phase": "ranks_tp", "card": smi, "mesh": [1, 2],
+           "serve": {"config": "qwen2.5-3b FULL bf16", "B": TP_SERVE_B, "cache": TP_CACHE,
+                     "history_start_lens": one["start_lens"],
+                     "prompt": TP_PROMPT, "new": TP_NEW, "prefill": [1, TP_PREFILL_S],
+                     "prefill_max_abs_err": prefill_err, "prefill_max_abs": scale,
+                     "step_max_abs_err": step_err, "step_max_abs": step_max,
+                     "tokens_equal": not diverged,
+                     "first_differing_token": diverged[0] if diverged else None,
+                     "one_rank_margin_there": margin,
+                     "f32_layers": TP_TRAIN_LAYERS, "f32_max_abs_err": f32_err,
+                     "f32_max_abs": f32_max, "f32_tokens_equal": True,
+                     "row12_history": [r["row12_history"] for r in [one] + ranks],
+                     "row12_ranks_vs_one_max_abs_err": row12_err,
+                     "rank_launches": [r["serve_launches"]["flash_decode"] for r in ranks],
+                     "one_rank_launches": one["serve_launches"]["flash_decode"],
+                     "tolerance": f"atol {TP_BF16_RTOL} * max|logits|"},
+           "train": {"config": f"qwen2.5-3b FULL width float32, {TP_TRAIN_LAYERS} layers",
+                     "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ], "steps": TP_TRAIN_STEPS,
+                     "n_micro": 2, "loss_max_rel_err": loss_err,
+                     "step2_leaves": one["step2_err"], "final_params": one["final_err"],
+                     "resumed_step3_rel_err": resume_err,
+                     "losses": [[h["loss"] for h in r["train_steps"]] for r in [one] + ranks],
+                     "coll_bytes_per_step": [r["coll_bytes_per_step"] for r in ranks],
+                     "coll_kinds": ranks[0]["coll_kinds"],
+                     "dryrun_coll_bytes": dry["coll_bytes"], "dryrun_kinds": dry["kinds"],
+                     "dryrun_count_s": dry["count_s"],
+                     "host_copied_per_step": ranks[0].get("host_copied_per_step"),
+                     "save_s": ranks[0]["save_s"], "final_save_s": ranks[0]["final_save_s"],
+                     "restore_s": one["restore_s"],
+                     "tolerance": {"loss_rtol": TP_LOSS_RTOL, "leaf_rtol": TP_LEAF_RTOL,
+                                   "param_atol_at_least":
+                                   f"lr_sum * min({TP_PARAM_ATOL_CAP}, "
+                                   "2 * leaf_rtol * max|m| / |m|)"}},
+           "one_rank": {k: one[k] for k in keys},
+           "ranks": [{k: r[k] for k in keys} | {"host_copied": r["host_copied"]}
+                     for r in ranks]}
     emit(out)
     return out
 
@@ -5541,6 +6142,9 @@ def main() -> int:
     # the training children start once the stream, engine and MoE children end
     t_train, train_procs = time.perf_counter(), start_rank_jobs(TRAIN_JOBS)
     run("ranks_train", phase_ranks_train, train_procs, t_train)
+    # the model-axis children start once the training children end
+    t_tp, tp_procs = time.perf_counter(), start_rank_jobs(TP_JOBS)
+    tp = run("ranks_tp", phase_ranks_tp, tp_procs, t_tp, smi)
     cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
     torch.cuda.empty_cache()
@@ -5698,6 +6302,10 @@ def main() -> int:
         "launches": (long["launches"]["flash_decode"] + d32k["launches"]["flash_decode"]
                      + lm_serve["launches"] + moe["launches"]),
         "moe_launches": moe["launches"],
+        # ranks_tp's children: each gloo rank's launches on its kv head, and
+        # the one-rank child's
+        "rank_launches": tp["serve"]["rank_launches"],
+        "one_rank_tp_launches": tp["serve"]["one_rank_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

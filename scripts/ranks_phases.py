@@ -2,6 +2,7 @@
 """chip_smoke's multi-rank phases alone, on one GPU (~5 min).
 
     python3 scripts/ranks_phases.py            # from the repo root
+    python3 scripts/ranks_phases.py --tp       # the kernels' build and ranks_tp only (~3 min)
 
 Builds the kernels, runs chip_smoke's ``scale`` and ``sharded_scale``
 phases (which write the flat engine's answers to
@@ -11,6 +12,9 @@ phases (which write the flat engine's answers to
 MoE children end), and the ``train`` phase's two smollm-360m steps
 at B 1 x S 4096.  Prints each
 phase's JSON line as chip_smoke does, and each part's wall seconds.
+With ``--tp``: the build (``env``) and the ``ranks_tp`` phase alone
+(qwen2.5-3b FULL on a (1, 2) mesh of two gloo ranks against one NCCL
+rank).
 """
 import gc
 import os
@@ -40,6 +44,11 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     cs.phase_env(smi)
+    if "--tp" in sys.argv[1:]:
+        t_tp = time.perf_counter()
+        cs.phase_ranks_tp(cs.start_rank_jobs(cs.TP_JOBS), t_tp, smi)
+        cs.emit({"ranks_tp_s": time.perf_counter() - t_tp})
+        return 0
     g, aux, _ = cs.phase_scale()
     cs.phase_sharded_scale(g, aux)
     del g, aux

@@ -21,9 +21,11 @@ writes each leaf's partition spec in the reference's JSON form
 (``list(P)``, a tuple entry as a list; ``null`` without specs), and
 ``restore(mesh=, target_specs=)`` places each leaf on a ``DeviceMesh``
 by ``target_specs``, or by the manifest's spec where that is not given:
-each rank holds its slice (``dist.shardings.shard_of``).  The arrays on
-disk are always the logical ones, so a checkpoint of k ranks restores
-onto any other count.  Under a process group (``launch.mesh.init_ranks``)
+each rank holds its slice (``dist.shardings.shard_of``, the local shard
+DTensor lays out on any ``(d, m)`` mesh; a DTensor leaf saves its own).
+The arrays on disk are always the logical ones, so a checkpoint of one
+mesh restores onto any other: (2, 2) -> (4, 1) -> (1, 1) -> (1, 2) keeps
+every logical leaf bit for bit.  Under a process group (``launch.mesh.init_ranks``)
 every rank calls ``save`` with the same tree: with ``mesh`` the sharded
 leaves are gathered to rank 0's host one at a time (no rank holds the
 logical state on its card), only rank 0 writes and commits, and every

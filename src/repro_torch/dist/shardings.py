@@ -23,7 +23,10 @@ Conventions
   take a rank's slice out of a logical tensor (tree) by those placements
   on a real mesh, ``gather_shard`` / ``gather`` put the slices together
   again across the ranks, on every rank, and ``gather_to_rank0`` on rank
-  0's host only.
+  0's host only.  A rank's slice is the local shard DTensor lays out for
+  the same placements on any ``(d, m)`` mesh (a dim named by several mesh
+  dims splits major first), so ``dist.spmd.from_local`` wraps it and a
+  DTensor's ``to_local`` is it; the gathers take either.
 """
 from __future__ import annotations
 
@@ -170,6 +173,7 @@ def gather_to_rank0(local, spec: Optional[Spec], mesh):
     import torch.distributed as dist
 
     rank = dist.get_rank()
+    local = _local_of(local)
     if not is_sharded(spec, mesh):
         return local.detach().cpu() if rank == 0 else None
     x = local.detach().contiguous()
@@ -212,11 +216,19 @@ def _all_gather_dim(t, dim: int, group):
     return out.to(t.device).movedim(0, dim).contiguous() if host or dim else out
 
 
+def _local_of(t):
+    """A DTensor's local shard (what ``shard_of`` gives on its mesh by its
+    placements), a plain tensor as it is."""
+    from .spmd import is_dtensor
+
+    return t.to_local() if is_dtensor(t) else t
+
+
 def gather_shard(local, spec: Optional[Spec], mesh):
     """The logical tensor of which ``local`` is this rank's ``shard_of``:
     every rank calls it, and each sharded mesh dim is all-gathered (minor
     first)."""
-    out = local
+    out = _local_of(local)
     pls = placements(mesh, spec)
     for i in reversed(range(len(pls))):
         if pls[i].is_shard() and int(mesh.size(i)) > 1:
@@ -408,6 +420,13 @@ def lm_cache_specs(
     else:
         kv = P(None, b, None, "model" if kv_ok else None, None)
     return {"k": kv, "v": kv, "len": P(b)}
+
+
+def decode_cache_seq_shard(cfg, mesh, batch: int) -> bool:
+    """Whether a decode's kv cache shards its sequence (``lm_cache_specs``'
+    ``seq_shard``): where the kv heads do not divide the model axis, and
+    always for one sequence, as the reference's decode cell chooses."""
+    return cfg.n_kv_heads % axis_sizes(mesh)["model"] != 0 or batch == 1
 
 
 # ---------------------------------------------------------------------------

@@ -174,10 +174,7 @@ def _lm_decode_cell(cfg, shape, mesh, seq_axes=("model",)) -> Cell:
     params_shape = _lm_params(cfg)
     p_specs = SH.spec_tree_like(SH.lm_param_specs(cfg, mesh), params_shape)
     cache_shape = T.init_kv_cache(cfg, B, S, device=META)
-    # sequence-shard the cache when kv heads don't divide the model axis,
-    # and always for the long-context single-sequence shape
-    kv_div = cfg.n_kv_heads % SH.axis_sizes(mesh)["model"] == 0
-    seq_shard = (not kv_div) or (B == 1)
+    seq_shard = SH.decode_cache_seq_shard(cfg, mesh, B)
     cache_specs = SH.lm_cache_specs(
         cfg, mesh, seq_shard=seq_shard, batch_size=B, seq_axes=seq_axes
     )

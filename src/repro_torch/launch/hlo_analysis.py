@@ -14,47 +14,12 @@ per-rank bytes as the reference counts result shapes after SPMD.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Sequence
 
 import torch
 
+from ..dist.collectives import KIND_OF, Collective
 from . import mesh as mesh_lib
-
-_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
-
-# functional collective -> the reference's HLO kind name
-_KIND_OF = {
-    "all_gather_into_tensor": "all-gather",
-    "all_gather_into_tensor_coalesced": "all-gather",
-    "all_gather_into_tensor_out": "all-gather",
-    "all_reduce": "all-reduce",
-    "all_reduce_": "all-reduce",
-    "all_reduce_coalesced": "all-reduce",
-    "all_reduce_coalesced_": "all-reduce",
-    "reduce_scatter_tensor": "reduce-scatter",
-    "reduce_scatter_tensor_coalesced": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
-    "shard_dim_alltoall": "all-to-all",  # DTensor's shard-to-shard move
-    "broadcast": "collective-permute",
-    "broadcast_": "collective-permute",
-}
-
-
-class Collective(NamedTuple):
-    """One recorded collective: its functional op name, its result on
-    this rank (a tensor or a list of them) and the ranks of its group."""
-
-    op: str
-    result: object
-    ranks: Tuple[int, ...] = ()
-
-
-def kind_of(func) -> Optional[str]:
-    """The reference's kind name of a dispatched op, None for an op that
-    moves no bytes between ranks (``wait_tensor`` included)."""
-    if getattr(func, "namespace", None) not in _NAMESPACES:
-        return None
-    return _KIND_OF.get(func._opname)
 
 
 def _nbytes(result) -> int:
@@ -71,7 +36,7 @@ def collective_bytes(records: Iterable[Collective]):
     per_kind: Dict[str, int] = {}
     total = 0
     for rec in records:
-        kind = _KIND_OF.get(rec.op, rec.op)
+        kind = KIND_OF.get(rec.op, rec.op)
         b = _nbytes(rec.result)
         total += b
         per_kind[kind] = per_kind.get(kind, 0) + b

@@ -11,7 +11,9 @@ backend in one process (``launch.dryrun.fake_world``).
 Real ranks: ``init_ranks`` starts the default process group of a
 multi-process run (``torchrun --nproc-per-node k``, or an explicit
 ``init_method`` such as a ``file://`` store), NCCL on the card and gloo
-on the host, and ``rank_mesh`` lays a ``DeviceMesh`` over its ranks.
+on the host, and ``rank_mesh`` lays a ``DeviceMesh`` over its ranks
+(``rank_mesh((d, m), ("data", "model"))`` over d·m ranks, row-major:
+the model axis's ranks are consecutive).
 ``control_group`` is a second, gloo, group over the same ranks for
 host-side messages (the graph query service's op descriptors,
 ``send_op`` / ``recv_op`` / ``ack_op``), so they never queue behind the

@@ -90,7 +90,8 @@ def _n_micro(args, mesh) -> int:
     ``--n-micro k``, not at 1 (the gradients then add in another order)."""
     if mesh is None:
         return args.n_micro
-    k = mesh.size()
+    # the data ranks of a ("data", "model") mesh
+    k = mesh.size() if getattr(mesh, "mesh_dim_names", None) is None else mesh.size(0)
     if args.n_micro > 1 and args.n_micro % k:
         raise SystemExit(f"--n-micro {args.n_micro} does not split over {k} ranks: "
                          f"give 1 or a multiple of {k}")

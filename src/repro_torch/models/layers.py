@@ -209,7 +209,12 @@ def attention(params: Params, cfg: AttnConfig, x: torch.Tensor,
         o = _einsum("bhgst,bthk->bshgk", w, v).reshape(B, S, cfg.n_heads, cfg.d_head)
     else:
         triangular = cfg.attn_impl.startswith("tri") and cfg.causal
-        o = _blockwise_attention(q, k, v, cfg, scale, triangular)
+        from ..dist import spmd
+
+        if spmd.is_dtensor(q):  # laid out over ranks: the loop on each rank's shards
+            o = spmd.attention_on_local_shards(q, k, v, cfg, scale, triangular)
+        else:
+            o = _blockwise_attention(q, k, v, cfg, scale, triangular)
     return _einsum("bshk,hkd->bsd", o, params["wo"])
 
 
@@ -287,7 +292,11 @@ def attention_decode(
     The new key and value go into the cache in place, at ``cache_len``;
     a row whose ``cache_len`` is at or past S_max writes nothing.  With
     ``use_flash_kernel`` the attention is ``flash_decode_cache``, which
-    reads the cache where it lies."""
+    reads the cache where it lies; on a cache of DTensors sharded on its
+    kv heads each rank launches it on its own heads
+    (``dist.spmd.flash_decode_on_local_shards``), and on one sharded on
+    the sequence it raises ``NotImplementedError`` (the plain decode runs
+    there under the sharded softmax)."""
     B = x.shape[0]
     S_max = k_cache.shape[1]
     q, k_new, v_new = _qkv(params, cfg, x, cache_len[:, None])
@@ -299,7 +308,12 @@ def attention_decode(
     g = cfg.n_heads // cfg.n_kv_heads
     if use_flash_kernel:
         qf = q.reshape(B, cfg.n_kv_heads, g, cfg.d_head)
-        o = fd.flash_decode_cache(qf, k_cache, v_cache, cache_len + 1)
+        from ..dist import spmd
+
+        if spmd.is_dtensor(k_cache):  # a cache laid out over ranks: each rank's heads
+            o = spmd.flash_decode_on_local_shards(qf, k_cache, v_cache, cache_len + 1)
+        else:
+            o = fd.flash_decode_cache(qf, k_cache, v_cache, cache_len + 1)
         o = o.reshape(B, 1, cfg.n_heads, cfg.d_head)
     else:
         qh = q.reshape(B, 1, cfg.n_kv_heads, g, cfg.d_head)

@@ -246,14 +246,36 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+                  mesh=None):
+    """A zero cache: k and v (n_layers, B, max_len, n_kv, d_head), len (B,).
+
+    With ``mesh`` (the ``DeviceMesh`` of parameters laid out over ranks)
+    each leaf is a DTensor laid out by ``dist.shardings.lm_cache_specs``,
+    each rank allocating only its shard: on the kv heads over ``model``
+    where they divide it, else (and for one sequence) on the sequence
+    (``shardings.decode_cache_seq_shard``, the decode cell's rule)."""
     dev = resolve(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
-    }
+    if mesh is None:
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        }
+    from ..dist import shardings as SH
+    from ..dist import spmd
+
+    specs = SH.lm_cache_specs(cfg, mesh, seq_shard=SH.decode_cache_seq_shard(cfg, mesh, batch),
+                              batch_size=batch)
+
+    def zeros(spec, shape_, dt):
+        # this rank's shard's shape (an uneven split raises)
+        local = SH.shard_of(torch.empty(shape_, device="meta"), spec, mesh).shape
+        return spmd.from_local(torch.zeros(local, dtype=dt, device=dev), spec, mesh)
+
+    return {"k": zeros(specs["k"], shape, dtype), "v": zeros(specs["v"], shape, dtype),
+            "len": zeros(specs["len"], (batch,), torch.int32)}
 
 
 def decode_step(params, cfg: LMConfig, cache, token: torch.Tensor,

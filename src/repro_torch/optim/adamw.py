@@ -40,6 +40,12 @@ def init(params) -> AdamWState:
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
+    """The 2-norm of all leaves together.  On DTensor leaves (the
+    model-parallel step's) each leaf's sum of squares is a partial sum
+    over the mesh dims that shard it, a replicated leaf's is replicated,
+    and their sum is a partial sum that DTensor takes with the replicated
+    terms on one rank only: each shard's squares count once and each
+    replicated leaf once, reduced before the square root."""
     return torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in leaves(tree)))
 
 

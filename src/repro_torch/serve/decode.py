@@ -46,12 +46,39 @@ def generate(
     use_flash_kernel: bool = False,
 ) -> torch.Tensor:
     """Greedy (or sampled) generation on the parameters' device; returns
-    (B, S0 + max_new).  The cache is bf16, as the reference's is."""
+    (B, S0 + max_new).  The cache is bf16, as the reference's is.
+
+    Parameters laid out over ranks (DTensors, ``dist.spmd.distribute``)
+    bring their mesh: every rank calls ``generate`` with the same prompt,
+    the cache is laid out by ``lm_cache_specs`` (``T.init_kv_cache``),
+    the steps run under ``dist.spmd.running``, and each step's
+    vocab-sharded logits are gathered before the token is picked, so
+    every rank returns the same tokens."""
+    from ..dist import spmd
+
+    mesh = spmd.mesh_of(params)
+    if mesh is None:
+        return _generate(params, cfg, prompt, max_new, max_len, temperature, key,
+                         use_flash_kernel, None)
+    with spmd.running():
+        return _generate(params, cfg, prompt, max_new, max_len, temperature, key,
+                         use_flash_kernel, mesh)
+
+
+def _generate(params, cfg, prompt, max_new, max_len, temperature, key, use_flash_kernel,
+              mesh):
+    from ..dist import spmd
+
     B, S0 = prompt.shape
     max_len = max_len or (S0 + max_new)
     device = params["embed"]["table"].device
-    cache = T.init_kv_cache(cfg, B, max_len, device=device)
-    serve_step = make_serve_step(cfg, use_flash_kernel)
+    cache = T.init_kv_cache(cfg, B, max_len, device=device, mesh=mesh)
+    step = make_serve_step(cfg, use_flash_kernel)
+
+    def serve_step(params, cache, token):
+        logits, cache = step(params, cache, token)
+        # logits laid out over ranks are gathered: each rank picks the same token
+        return (logits.full_tensor() if spmd.is_dtensor(logits) else logits), cache
 
     # prefill token by token through the cache (simple, exact); batched
     # prefill through forward() is make_prefill

@@ -22,6 +22,10 @@ parameters and of ``m`` and ``v`` where the state's specs shard them
 all-gathered.  Two ranks at one slice each give the one-rank step at
 ``n_micro=2`` bit for bit (its ``(0 + g0) + g1`` is the all-reduce's
 ``g0 + g1``; AdamW is elementwise).
+
+On a ``(d, m)`` mesh with m > 1 (``_model_parallel_step``) the step runs
+on DTensors under ``dist.spmd``: the reference's cells as GSPMD lays
+them out, the same program the dry run counts.
 """
 from __future__ import annotations
 
@@ -54,12 +58,14 @@ def _value_and_grad(loss_fn, params, batch):
     return loss.detach(), unflatten(params, grads)
 
 
-def _accumulate(loss_fn, params, batch, n_micro: int):
+def _accumulate(loss_fn, params, batch, n_micro: int, wrap=None):
     """Gradient accumulation: split the batch into n_micro slices along
     axis 0 and average loss and grads over them — activation memory drops
-    n_micro-fold."""
+    n_micro-fold.  ``wrap`` (default none) maps each slice before the
+    loss reads it (the model-parallel step lays it out over the ranks)."""
+    wrap = wrap or (lambda b: b)
     if n_micro <= 1:
-        return _value_and_grad(loss_fn, params, batch)
+        return _value_and_grad(loss_fn, params, wrap(batch))
 
     def micro(i):
         def take(x):
@@ -73,9 +79,9 @@ def _accumulate(loss_fn, params, batch, n_micro: int):
         return tree_map(take, batch)
 
     acc_loss = None
-    acc_g = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    acc_g = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     for i in range(n_micro):
-        loss, grads = _value_and_grad(loss_fn, params, micro(i))
+        loss, grads = _value_and_grad(loss_fn, params, wrap(micro(i)))
         acc_loss = loss.float() if acc_loss is None else acc_loss + loss
         acc_g = tree_map(torch.add, acc_g, grads)
     inv = 1.0 / n_micro
@@ -95,15 +101,20 @@ def make_train_step(
     ``(new TrainState, {"loss", "grad_norm", "lr"})``, the metrics as
     float32 scalar tensors on the params' device.
 
-    With ``mesh`` (a ``(k, 1)`` ("data", "model") ``DeviceMesh``) and
-    ``specs`` (the ``TrainState``'s spec tree, ZeRO-1 moments): the
-    data-parallel step of the module docstring; ``n_micro`` is then the
-    slices of each rank's 1/k, and the state holds each rank's
-    ``dist.shardings.place`` of it.  Without ``mesh`` (or at k = 1) the
-    batch split, the all-reduce, the slicing and the gather are each the
+    With ``mesh`` (a ("data", "model") ``DeviceMesh``) and ``specs`` (the
+    ``TrainState``'s spec tree, ZeRO-1 moments) the state holds each
+    rank's ``dist.shardings.place`` of it and every rank is given the
+    global batch.  On a ``(k, 1)`` mesh: the data-parallel step of the
+    module docstring; ``n_micro`` is then the slices of each rank's 1/k.
+    On a mesh whose ``model`` axis has more than one rank:
+    ``_model_parallel_step``.  Without ``mesh`` (or at k = 1) the batch
+    split, the all-reduce, the slicing and the gather are each the
     identity, and are skipped."""
     from ..dist import shardings as SH
 
+    if mesh is not None and SH.axis_sizes(mesh).get("model", 1) > 1:
+        return _model_parallel_step(loss_of_batch, lr_schedule, clip_norm, weight_decay,
+                                    n_micro, mesh, specs)
     k, idx, group = (1, 0, None) if mesh is None else data_ranks(mesh)
     m_specs = None if mesh is None else leaves(specs.opt.m)
 
@@ -135,15 +146,66 @@ def make_train_step(
     return train_step
 
 
+def _model_parallel_step(loss_of_batch, lr_schedule, clip_norm: float, weight_decay: float,
+                         n_micro: int, mesh, specs):
+    """The step on a ``(d, m)`` ("data", "model") mesh with m > 1: the
+    reference's cells as GSPMD runs them.  Inside the step the state's
+    slices are the DTensors they are shards of (``dist.spmd.from_local``:
+    the parameters by ``lm_param_specs`` or ``dcn_param_specs``, the
+    moments by their ``zero1_specs`` over both axes) and each rank's
+    ``n_micro`` slices of its 1/d of the batch are laid out on the data
+    axis; the loss and its gradients run under ``dist.spmd.running``
+    (Megatron tensor parallelism: heads, ``d_ff`` and vocab over
+    ``model``).  Each gradient is then laid out as its parameter
+    (an all-reduce over the data axis where it is a partial sum there),
+    the global-norm clip reads the DTensors' norm (each model-sharded
+    leaf's squares summed over its shards once, a replicated leaf once),
+    AdamW updates each rank's ZeRO-1 slice, and the new state is laid out
+    by ``specs`` again (the parameters all-gathered over the data axis)
+    and handed back as this rank's slices.  Not bit-identical to one
+    rank: the sharded products and reductions add in another order."""
+    from ..dist import shardings as SH
+    from ..dist import spmd
+
+    k, idx, _ = data_ranks(mesh)
+    entry = SH._batch_entry(mesh)
+
+    def on_ranks(mb):
+        """This rank's rows as the DTensors they are the data axis's
+        shards of."""
+        def one(x):
+            if not torch.is_tensor(x):
+                return x
+            return spmd.from_local(x, SH.P(entry, *([None] * (x.ndim - 1))), mesh)
+
+        return tree_map(one, mb)
+
+    def value(t):
+        return t.full_tensor() if spmd.is_dtensor(t) else t
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with spmd.running():
+            st = spmd.from_local(state, specs, mesh)
+            loss, grads = _accumulate(loss_of_batch, st.params, rank_rows(batch, idx, k),
+                                      n_micro, wrap=on_ranks)
+            grads = spmd.redistribute(grads, specs.params, mesh)
+            grads, gnorm = adamw.clip_by_global_norm(grads, clip_norm)
+            lr = lr_schedule(st.opt.step)
+            new_params, new_opt = adamw.update(st.opt, grads, st.params, lr,
+                                               weight_decay=weight_decay)
+            new = spmd.redistribute(TrainState(new_params, new_opt), specs, mesh)
+            metrics = {"loss": value(loss), "grad_norm": value(gnorm), "lr": value(lr)}
+        return spmd.to_local(new), metrics
+
+    return train_step
+
+
 def data_ranks(mesh) -> Tuple[int, int, Any]:
-    """(k, this rank's index, process group) of the batch axes of a mesh
-    whose ``model`` axis has one rank."""
+    """(k, this rank's index, process group) of the batch axis of a
+    ("data", "model") mesh."""
     from ..dist import shardings as SH
 
     sizes = SH.axis_sizes(mesh)
-    if sizes.get("model", 1) != 1:
-        raise NotImplementedError("the data-parallel step runs on a (k, 1) "
-                                  "(\"data\", \"model\") mesh")
     bax = SH.batch_axes(mesh)
     if len(bax) != 1:
         raise NotImplementedError(f"one batch axis, not {bax}")
