@@ -33,8 +33,8 @@ checks every result.  One JSON object per phase goes to stdout:
           rMAT communities of 2^15 vertices (first showing that the stream
           phase's plain rMAT tree raises, as the reference's layout does),
           two of its 9 publishes (``COMPRESSED_CHECKED_PUBLISHES``)
-          held against the host tree, decoded
-          once, and the numpy engine on that decode, and both adaptive
+          held against the host tree, decoded once in a forked child
+          (``fork_check``), and the numpy engine on that decode, and both adaptive
           kernels held against their plain versions on the
           last version's own lane (D = 1 and 8);
   graph_serve
@@ -150,7 +150,8 @@ checks every result.  One JSON object per phase goes to stdout:
           layer 0's kernel call held against its plain version and timed
           (per call and back to back) beside its bound, the plain version
           and SDPA, with the host cost of its tensor maps and of setting
-          ctypes argtypes on every call;
+          ctypes argtypes on every call, and again with its log-sum-exp
+          (the output's bits unchanged, the lse against the plain one);
   lm_decode_32k
           the same on decode_32k at B = 32 (cut from 128, whose cache would
           take 172 GB), ragged cache lengths in [16,384, 32,767], 3 steps;
@@ -391,9 +392,10 @@ def rmat_symmetric_device(log_n: int, n_draws: int, seed: int, communities: int 
     return torch.stack([keys >> 32, keys & 0xFFFFFFFF], 1).cpu().numpy()
 
 
-def rmat_keys_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
-    """``rmat_symmetric_device``'s edges as packed ``(src << 32) | dst``
-    keys, sorted and unique, left on the card."""
+def rmat_draws_device(log_n: int, n_draws: int, seed: int):
+    """``n_draws`` rMAT (src, dst) pairs over 2^log_n ids, drawn on the
+    card from a seeded generator (int64, as drawn: directed, with
+    duplicates and self loops)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -406,6 +408,15 @@ def rmat_keys_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
         dst_bit = torch.where(src_bit, r >= a + b + c, r >= a)
         src = (src << 1) | src_bit
         dst = (dst << 1) | dst_bit
+    return src, dst
+
+
+def rmat_keys_device(log_n: int, n_draws: int, seed: int, communities: int = 1):
+    """``rmat_symmetric_device``'s edges as packed ``(src << 32) | dst``
+    keys, sorted and unique, left on the card."""
+    import torch
+
+    src, dst = rmat_draws_device(log_n, n_draws, seed)
     if communities > 1:
         off = (torch.arange(n_draws, device="cuda") * communities // n_draws) << log_n
         src, dst = src + off, dst + off
@@ -645,14 +656,16 @@ def phase_stream() -> dict:
     return launches, stream
 
 
-def fork_check(stream, srcs, resets, weighted: bool, path: Path) -> int:
+def fork_check(stream, srcs, resets, sssp: bool, path: Path, lanes: bool = False) -> int:
     """Fork a child that answers the stream's current version on the numpy
     engine (the version's host tree decoded once, ``DecodedSnapshot``):
-    BFS from ``srcs``, PageRank from ``resets`` and, on a weighted
-    version, SSSP from ``srcs[:4]``, into ``path``.  The child holds its
-    own copy of the tree (copy on write), runs numpy only (no CUDA, no
-    torch op) and leaves with ``os._exit``; the parent goes on to the next
-    publish at once.  Returns the child's pid (``wait_check``)."""
+    BFS from ``srcs``, PageRank from ``resets`` and, with ``sssp``, SSSP
+    from ``srcs[:4]``, into ``path``; with ``lanes`` also the flat pool a
+    rebuild from the tree holds (``flat_graph_of``'s keys, offsets and
+    float32 weights, built in numpy).  The child holds its own copy of
+    the tree (copy on write), runs numpy only (no CUDA, no torch op) and
+    leaves with ``os._exit``; the parent goes on to the next publish at
+    once.  Returns the child's pid (``wait_check``)."""
     from repro_torch.core import graph as G
     from repro_torch.core.traversal.numpy_backend import NumpyEngine
 
@@ -665,12 +678,15 @@ def fork_check(stream, srcs, resets, weighted: bool, path: Path) -> int:
             code = 1
             try:
                 t = time.perf_counter()
-                eng = NumpyEngine(DecodedSnapshot(G.flat_snapshot(v.graph)))
+                snap = DecodedSnapshot(G.flat_snapshot(v.graph))
+                eng = NumpyEngine(snap)
                 t1 = time.perf_counter()
                 out = {"bfs": stream._serve_kind(eng, "bfs", srcs, {}),
                        "pagerank": stream._serve_kind(eng, "pagerank", None, {"resets": resets})}
-                if weighted:
+                if sssp:
                     out["sssp"] = stream._serve_kind(eng, "sssp", srcs[:4], {})
+                if lanes:
+                    out.update(rebuilt_lanes(snap))
                 tmp = path.with_name(path.stem + ".tmp.npz")
                 np.savez(tmp, decode_s=t1 - t, numpy_s=time.perf_counter() - t1, **out)
                 os.replace(tmp, path)
@@ -684,6 +700,26 @@ def fork_check(stream, srcs, resets, weighted: bool, path: Path) -> int:
     finally:
         stream.release(v)
     return pid
+
+
+def rebuilt_lanes(snap) -> dict:
+    """``flat_graph_of(snap)``'s pool in numpy: the CSR's packed keys
+    sorted (stable) and deduplicated, the first weight of a key kept as
+    float32, offsets by ``searchsorted`` capped at m."""
+    srcs = np.repeat(np.arange(snap.n, dtype=np.int64), np.diff(snap.offsets))
+    packed = (srcs << 32) | snap.nbrs.astype(np.int64)
+    order = np.argsort(packed, kind="stable")
+    k = packed[order]
+    keep = np.ones(k.shape, bool)
+    keep[1:] = k[1:] != k[:-1]
+    keys = k[keep]
+    offsets = np.minimum(np.searchsorted(keys, np.arange(snap.n + 1, dtype=np.int64) << 32),
+                         keys.shape[0]).astype(np.int32)
+    out = {"keys": keys, "offsets": offsets}
+    if snap.weighted:
+        w = np.asarray(snap.edge_weights(srcs, snap.nbrs), dtype=np.float32)
+        out["weights"] = w[order][keep]
+    return out
 
 
 def wait_check(pid: int, path: Path, what: str, timeout_s: float = 300.0):
@@ -1445,8 +1481,7 @@ def phase_compressed_stream(plain_stream) -> dict:
     from repro_torch.core import flat_graph as fg
     from repro_torch.core import graph as G
     from repro_torch.core import streaming as st
-    from repro_torch.core.traversal import CompressedEngine, flat_graph_of
-    from repro_torch.core.traversal.numpy_backend import NumpyEngine
+    from repro_torch.core.traversal import CompressedEngine
     from repro_torch.data.rmat import rmat_communities
     from repro_torch.kernels import delta_decode as dd
     from repro_torch.kernels import segment_reduce as sr
@@ -1473,7 +1508,11 @@ def phase_compressed_stream(plain_stream) -> dict:
     out.update(n=n, communities=n_comm, community_vertices=1 << log_c,
                edges_generated=int(E0.shape[0]), tree_and_mirror_build_s=time.perf_counter() - t0)
 
-    mirror_s, publish_s, check_s, decode_s, pr_rel = [], [], [], [], [0.0]
+    mirror_s, publish_s, check_s, pr_rel = [], [], [], [0.0]
+    pending = []  # (child pid, its answers' file, the card's answers) per checked publish
+    check_dir = STREAM_CHECK_DIR / "compressed"
+    shutil.rmtree(check_dir, ignore_errors=True)
+    check_dir.mkdir(parents=True)
 
     def timed_mirror(fn):
         def run(*a, **k):
@@ -1496,43 +1535,70 @@ def phase_compressed_stream(plain_stream) -> dict:
             stream.release(v)
 
     def check_version() -> None:
+        """The card's mirror lanes and answers on the current version now;
+        the numpy engine's and a rebuild's lanes from the same version's
+        tree in a forked child (``fork_check``), held against them once
+        every publish is made (``settle``)."""
         t = time.perf_counter()
         v = stream.acquire()
-        try:  # the version's mirror, and its tree decoded once on the host
+        try:
             cg = v.aux[st.MIRROR]
-            snap = DecodedSnapshot(G.flat_snapshot(v.graph))
         finally:
             stream.release(v)
-        decode_s.append(time.perf_counter() - t)
         if not isinstance(cg, fg.CompressedPool) or bool(cg.dst.spill):
             raise AssertionError("compressed_stream: the mirror is not a sound CompressedPool")
-        eng_np = NumpyEngine(snap)
-        got, want = fg.decompress(cg), flat_graph_of(snap, device="cuda")
-        m = int(want.m)
-        if not (int(got.m) == m and torch.equal(got.keys[:m], want.keys[:m])
-                and torch.equal(got.offsets, want.offsets)
-                and bool((got.keys[m:] == fg.SENT64).all())
-                and (want.weights is None or torch.equal(got.weights[:m], want.weights[:m]))):
-            raise AssertionError("compressed_stream: decompress(mirror) differs from a rebuild")
         eng = stream.engine("torch")
         if not isinstance(eng, CompressedEngine):
             raise AssertionError(f"compressed_stream: engine is {type(eng).__name__}")
-        srcs = rng.choice(np.flatnonzero(eng_np.degrees > 0), 16, replace=False)
-        if not np.array_equal(stream.query_batch(srcs, kind="bfs"),
-                              stream._serve_kind(eng_np, "bfs", srcs, {})):
-            raise AssertionError("compressed_stream: bfs parents differ from the numpy engine")
+        flat = fg.decompress(cg)
+        m = int(flat.m)
+        if not bool((flat.keys[m:] == fg.SENT64).all()):
+            raise AssertionError("compressed_stream: decompress(mirror) has keys past m")
+        got = {"keys": flat.keys[:m].cpu().numpy(), "offsets": flat.offsets.cpu().numpy()}
+        if flat.weights is not None:
+            got["weights"] = flat.weights[:m].cpu().numpy()
+        srcs = rng.choice(np.flatnonzero(eng.degrees.cpu().numpy() > 0), 16, replace=False)
         resets = rng.random((8, n))
         resets /= resets.sum(1, keepdims=True)
-        got = stream.query_batch(kind="pagerank", resets=resets)
-        want = stream._serve_kind(eng_np, "pagerank", None, {"resets": resets})
-        atol = 1e-6 * float(np.abs(want).max())
-        pr_rel[0] = max(pr_rel[0], float((np.abs(got - want) / np.maximum(np.abs(want), atol)).max()))
-        if not (np.all(np.isfinite(got)) and np.allclose(got, want, rtol=PR_RTOL, atol=atol)):
-            raise AssertionError(f"compressed_stream: pagerank off (rel {pr_rel[0]})")
-        if not np.array_equal(stream.query_batch(srcs[:4], kind="sssp"),
-                              stream._serve_kind(eng_np, "sssp", srcs[:4], {})):
-            raise AssertionError("compressed_stream: sssp distances differ from the numpy engine")
+        got.update(bfs=stream.query_batch(srcs, kind="bfs"),
+                   pagerank=stream.query_batch(kind="pagerank", resets=resets),
+                   sssp=stream.query_batch(srcs[:4], kind="sssp"))
+        path = check_dir / f"publish_{len(pending)}.npz"
+        pending.append((fork_check(stream, srcs, resets, True, path, lanes=True), path, got))
         check_s.append(time.perf_counter() - t)
+
+    def settle() -> dict:
+        """Each checked publish's mirror against the rebuild (keys,
+        offsets and weights equal) and its card answers against the numpy
+        engine's: BFS parents and SSSP distances equal, PageRank within
+        ``PR_RTOL``."""
+        t = time.perf_counter()
+        out = {"decode_s": [], "numpy_s": []}
+        for i, (pid, path, got) in enumerate(pending):
+            want = wait_check(pid, path, f"compressed_stream check {i}")
+            out["decode_s"].append(float(want["decode_s"]))
+            out["numpy_s"].append(float(want["numpy_s"]))
+            if not (np.array_equal(got["keys"], want["keys"])
+                    and np.array_equal(got["offsets"], want["offsets"])
+                    and ("weights" in got) == ("weights" in want)
+                    and ("weights" not in got or np.array_equal(got["weights"],
+                                                                want["weights"]))):
+                raise AssertionError(f"compressed_stream: check {i}: decompress(mirror) "
+                                     "differs from a rebuild")
+            if not np.array_equal(got["bfs"], want["bfs"]):
+                raise AssertionError(f"compressed_stream: check {i}: bfs parents differ from "
+                                     "the numpy engine")
+            g, w = got["pagerank"], want["pagerank"]
+            atol = 1e-6 * float(np.abs(w).max())
+            pr_rel[0] = max(pr_rel[0], float((np.abs(g - w) / np.maximum(np.abs(w), atol)).max()))
+            if not (np.all(np.isfinite(g)) and np.allclose(g, w, rtol=PR_RTOL, atol=atol)):
+                raise AssertionError(f"compressed_stream: check {i}: pagerank off "
+                                     f"(rel {pr_rel[0]})")
+            if not np.array_equal(got["sssp"], want["sssp"]):
+                raise AssertionError(f"compressed_stream: check {i}: sssp distances differ "
+                                     "from the numpy engine")
+        out["wait_s"] = time.perf_counter() - t
+        return out
 
     def publish(fn, *args, **kw):
         t = time.perf_counter()
@@ -1557,6 +1623,7 @@ def phase_compressed_stream(plain_stream) -> dict:
         if launches[name] == 0:
             raise AssertionError(f"compressed_stream: {name} was never launched: {launches}")
     kernel_check = compressed_stream_kernel_check(stream.engine("torch"))
+    settled = settle()
 
     cg = mirror()
     stats = fg.chunk_stats(fg.decompress(cg))
@@ -1570,7 +1637,8 @@ def phase_compressed_stream(plain_stream) -> dict:
         m=m, batches=n_batches + 1, updates_per_batch=batch, publishes=len(publish_s),
         versions_checked=len(check_s), pagerank_max_rel_err=pr_rel[0], pagerank_rtol=PR_RTOL,
         mean_publish_s=float(np.mean(publish_s)), mean_mirror_step_s=float(np.mean(mirror_s)),
-        checks_s=float(np.sum(check_s)), checks_decode_s=float(np.sum(decode_s)),
+        checks_s=float(np.sum(check_s)), checks_decode_s=float(np.sum(settled["decode_s"])),
+        checks_numpy_s=float(np.sum(settled["numpy_s"])), checks_wait_s=settled["wait_s"],
         spill_heals=stream.spill_heals, dst_bytes=resident, bytes_ideal=stats["bytes_ideal"],
         spare_hi_rows=spare, dst_bytes_per_edge=resident / m,
         raw_key_bytes_per_edge=8 * cg.edge_capacity / m,
@@ -2706,9 +2774,11 @@ RANK_JOBS = {
     "train_gloo": (2, "gloo"),  # ranks_train: ZeRO-1 on a (2, 1) mesh
     "tp_one": (1, "nccl"),  # ranks_tp: qwen2.5-3b on one rank, the answers held to
     "tp_gloo": (2, "gloo"),  # ranks_tp: the model axis, a (1, 2) mesh
+    "cells_one": (1, "nccl"),  # ranks_cells: the plain program, the answers held to
+    "cells_gloo": (2, "gloo"),  # ranks_cells: the cells' layouts on a (1, 2) mesh
 }
 TRAIN_JOBS = ("train_one", "train_gloo")  # started after the others end
-TP_JOBS = ("tp_one", "tp_gloo")  # started when the training children end
+TP_JOBS = ("tp_one", "tp_gloo")  # run beside compressed_stream
 # engines_gloo (15.3 GB a rank) starts when engines_nccl (23.2 GB) ends:
 # beside the stream and MoE children and the parent, both at once came
 # within 0.4 GB of the card's 80 GB
@@ -2780,6 +2850,35 @@ TP_BF16_RTOL = 0.1
 # cache is bf16 on both sides and a key or value a float32 sum apart may
 # round to the neighbouring bf16 value on one of them.
 TP_F32_LOGITS_RTOL = 1e-2
+# ranks_cells: the GNN and aspen-stream cells with values, and row 12 on a
+# sequence-sharded cache, on a (1, 2) mesh of two gloo ranks sharing the
+# card (``cells_gloo``) against one NCCL rank running the plain program
+# (``cells_one``).  gcn-cora FULL trains on ogb_products' own size (its
+# node-sharded layout, ``gnn_batch_specs(shard_nodes=True)``): an rMAT
+# draw at that node and edge count, padded to 512 as the cells pad.
+# graphsage-reddit FULL trains on the same graph cut to CELLS_SAGE_EDGES
+# edges: its layer-1 gather alone is 400 bytes an edge, made three times
+# on each gloo rank (the gathered rows, the masked rows, the all-reduced
+# copy) and about as often again in the backward, so with the one-rank
+# child beside them the card holds about 5.2 KB an edge: 11.5 M edges in
+# 60 GB, of which 8 M (2^23) leaves room for the parent.  The stream
+# cells at the published size: a 2^28-slot pool over 2^25 vertices
+# holding an rMAT draw, a 2^21-slot batch, an overlay of 8 batches, the
+# pool's BFS levels from one vertex, the decode of three 2^28 lanes.
+# Row 12: smollm-360m FULL bf16 (5 kv heads do not divide the model axis,
+# so its cache shards on the sequence), one decode step over a seeded
+# history that ends between CELLS_CACHE - CELLS_HISTORY_SPREAD and
+# CELLS_CACHE - 1 positions.
+CELLS_JOBS = ("cells_one", "cells_gloo")  # run beside the stream and host_decode
+# phases (the card nearly idle, host Python in the parent)
+CELLS_NODES, CELLS_EDGES = 2_449_029, 61_859_140  # ogb_products
+CELLS_SAGE_EDGES = 1 << 23
+CELLS_D_FEAT, CELLS_STEPS = 100, 2
+CELLS_POOL, CELLS_BATCH, CELLS_N = 1 << 28, 1 << 21, 1 << 25
+CELLS_POOL_DRAWS = 1 << 26  # about 2^27 unique symmetric keys in the 2^28 slots
+CELLS_B, CELLS_CACHE, CELLS_HISTORY_SPREAD = 8, 4096, 128
+# the schedule of the GNN steps (step 0 warms up at lr 0)
+CELLS_LR = dict(warmup=1, stable=10, decay=5, peak_lr=3e-3)
 
 
 def digest(x) -> str:
@@ -3645,8 +3744,330 @@ def rank_tp(tag: str) -> dict:
     return out
 
 
+def _pad512(k: int) -> int:
+    return -(-k // 512) * 512
+
+
+def _cells_graph(n_edges: int, n_classes: int) -> dict:
+    """ogb_products' graph with ``n_edges`` edges, drawn on the card (each
+    process draws the same): an rMAT draw over 2^22 ids scaled onto the
+    cell's node count (keeping the draw's skew), padded to a multiple of
+    512 with masked edges (n - 1, n - 1) onto masked nodes, as the cells
+    pad; features, labels and a label mask from a seeded generator."""
+    import torch
+
+    from repro_torch.models.gnn import common
+
+    n, n_pad, e_pad = CELLS_NODES, _pad512(CELLS_NODES), _pad512(n_edges)
+    src, dst = rmat_draws_device(22, n_edges, SEED + 61)
+    pad = torch.full((e_pad - n_edges,), n_pad - 1, dtype=torch.int32, device="cuda")
+    src = torch.cat([((src * n) >> 22).to(torch.int32), pad])
+    dst = torch.cat([((dst * n) >> 22).to(torch.int32), pad])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    x = torch.randn((n_pad, CELLS_D_FEAT), generator=gen, device="cuda")
+    node_mask = torch.arange(n_pad, device="cuda") < n
+    graph = common.GraphBatch(x=x, src=src, dst=dst,
+                              edge_mask=torch.arange(e_pad, device="cuda") < n_edges,
+                              node_mask=node_mask)
+    labels = torch.randint(0, n_classes, (n_pad,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    label_mask = (torch.rand(n_pad, generator=gen, device="cuda") < 0.5) & node_mask
+    return {"graph": graph, "labels": labels, "label_mask": label_mask}
+
+
+def _cells_gnn(mesh, out: dict, arch: str, n_edges: int) -> None:
+    """Two train steps of ``arch`` FULL on ``_cells_graph``: the plain
+    step on one rank; on the ranks the cell's replicated state
+    (``train_specs("gnn")``) and its batch laid out by
+    ``gnn_batch_spec_tree`` (nodes over ``model``).  The state goes to
+    build/ranks/ (rank 0's)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch._tree import flatten_with_paths
+    from repro_torch.configs import registry
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist import spmd
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as launch
+    from repro_torch.models.gnn import gcn, graphsage
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    cfg = registry.get(arch).full
+    batch = _cells_graph(n_edges, cfg.n_classes)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    model = gcn if cfg.kind == "gcn" else graphsage
+    params = model.init(gen, CELLS_D_FEAT, cfg.d_hidden, cfg.n_classes, cfg.n_layers,
+                        device="cuda")
+    loss = TS.gcn_loss(None) if cfg.kind == "gcn" else TS.sage_full_loss()
+    sched = adamw.wsd_schedule(**CELLS_LR)
+    state = TS.init_state(params)
+    if mesh is None:
+        step = TS.make_train_step(loss, sched)
+    else:
+        specs = launch.train_specs("gnn", cfg, params, mesh)
+        b_specs = cells.gnn_batch_spec_tree(cfg, registry.GNN_SHAPES["ogb_products"], mesh)
+        step = TS.make_train_step(loss, sched, mesh=mesh, specs=specs, batch_specs=b_specs)
+        state = SH.place(state, specs, mesh)
+    times, peaks, hist, host = [], [], [], {}
+    for _ in range(CELLS_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with spmd.running() if mesh is not None else contextlib.nullcontext() as mode:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        peaks.append(torch.cuda.max_memory_allocated())
+        hist.append({k: float(v) for k, v in m.items()})
+        if mode is not None:
+            host = dict(mode.host_copied)
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"ranks_cells: {arch} a non-finite loss {hist}")
+    out[arch] = {"nodes": CELLS_NODES, "nodes_padded": _pad512(CELLS_NODES),
+                 "edges": n_edges, "edges_padded": _pad512(n_edges), "steps": hist,
+                 "step_s": times, "peak_bytes": max(peaks), "host_copied_per_step": host}
+    logical = state if mesh is None else SH.gather(state, specs, mesh)
+    if mesh is None or mesh.get_rank() == 0:
+        np.savez(RANKS_DIR / f"{out['job']}_{arch}.npz",
+                 **{p: t.detach().cpu().numpy() for p, t in flatten_with_paths(logical)})
+    del batch, state, logical
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cells_stream(mesh, out: dict) -> None:
+    """The four aspen-stream cells at the published size, on the ranks
+    every array of the cell laid out over both mesh axes (the cells'
+    specs): each result's digest (bit for bit), its seconds and this
+    process's peak bytes."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import flat_ctree as fct
+    from repro_torch.core import flat_graph as fg
+    from repro_torch.core.traversal import torch_backend as tb
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist import spmd
+    from repro_torch.launch import cells
+
+    def keys_in(draws: int, seed: int, cap: int):
+        k = rmat_keys_device(CELLS_N.bit_length() - 1, draws, seed)[:cap]
+        data = torch.full((cap,), fct.SENTINEL64, dtype=torch.int64, device="cuda")
+        data[:k.numel()] = k
+        return fct.FlatCTree(data, torch.tensor(k.numel(), dtype=torch.int32, device="cuda"))
+
+    pool = keys_in(CELLS_POOL_DRAWS, SEED + 71, CELLS_POOL)
+    g = fg.FlatGraph(fg._offsets_from_keys(pool.data, pool.n, CELLS_N), pool.data, pool.n)
+    batch = keys_in(CELLS_BATCH // 2, SEED + 72, CELLS_BATCH)
+    overlay = keys_in(2 * CELLS_BATCH, SEED + 73, 8 * CELLS_BATCH)
+    del pool
+    on_ranks = spmd.running if mesh is not None else contextlib.nullcontext
+    lane = None if mesh is None else SH.P(("data", "model"))
+
+    def lay(tree, specs):
+        return tree if mesh is None else spmd.distribute(tree, specs, mesh)
+
+    def full(t):
+        return t.full_tensor() if spmd.is_dtensor(t) else t
+
+    res = {"pool_keys": int(g.m), "batch_keys": int(batch.n), "overlay_keys": int(overlay.n)}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with on_ranks():
+            got = fn(*args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = [full(x) for x in got]
+        res[name] = {"s": secs, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "digests": [digest(x) for x in got]}
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gl = lay(g, fg.FlatGraph(offsets=SH.P(None), keys=lane, m=SH.P()))
+    bl = lay(batch, fct.FlatCTree(data=lane, n=SH.P()))
+    timed("update_2m", lambda: tuple(fg.insert_edges(gl, bl, out_cap=CELLS_POOL)[:3]))
+    ol = lay(overlay, fct.FlatCTree(data=lane, n=SH.P()))
+    timed("update_2m_overlay",
+          lambda: tuple(fct.union_merge(ol, bl, out_cap=8 * CELLS_BATCH)[:2]))
+    del bl, ol, batch, overlay
+    aux = tb.engine_aux(g)
+    auxl = lay(aux, tb.EngineAux(src_c=lane, dst_c=lane, evalid=lane, degrees=SH.P(None),
+                                 dst_sorted=lane, src_by_dst=lane, valid_by_dst=lane,
+                                 dst_offsets=SH.P(None)))
+    del aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    source = lay(torch.tensor(0, dtype=torch.int32, device="cuda"), SH.P())
+    syncs = tb.HOST_SYNCS.count
+    timed("query_bfs", lambda: (tb.bfs_levels(gl, source, auxl),))
+    res["query_bfs"]["rounds"] = tb.HOST_SYNCS.count - syncs
+    del gl, auxl, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 74)
+    deltas = torch.randint(1, 50, (CELLS_POOL,), generator=gen, device="cuda",
+                           dtype=torch.int64)
+    heads = torch.rand(CELLS_POOL, generator=gen, device="cuda") < 1 / 64
+    heads[0] = True
+    anchors = torch.randint(0, 1 << 40, (CELLS_POOL,), generator=gen, device="cuda",
+                            dtype=torch.int64)
+    lanes = lay((deltas, anchors, heads), (lane, lane, lane))
+    del deltas, anchors, heads
+    timed("decode_pool", lambda: (cells._decode_pool_step(*lanes),))
+    del lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["stream"] = res
+
+
+def _cells_decode(mesh, out: dict) -> None:
+    """smollm-360m FULL bf16: one decode step with the flash kernel over a
+    seeded history (on the ranks a cache sharded on the sequence: each
+    rank's launch on its block of positions, the partial outputs combined
+    by their log-sum-exps), then row 12 alone on layer 0's cache at the
+    history's lengths against the plain version on the gathered layer,
+    timed on this process's block."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.configs import smollm_360m
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import transformer as T
+
+    cfg = smollm_360m.FULL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    params = T.init_params(gen, cfg, dtype=torch.bfloat16, device="cuda")
+    cache = T.init_kv_cache(cfg, CELLS_B, CELLS_CACHE, device="cuda")
+    for i in range(cfg.n_layers):
+        cache["k"][i].normal_(generator=gen)
+        cache["v"][i].normal_(generator=gen)
+    cache["len"] = torch.randint(CELLS_CACHE - CELLS_HISTORY_SPREAD, CELLS_CACHE,
+                                 (CELLS_B,), generator=gen, device="cuda", dtype=torch.int32)
+    lens = cache["len"].clone()
+    token = torch.randint(0, cfg.vocab, (CELLS_B,), generator=gen, device="cuda")
+    q = (2 * torch.randn(CELLS_B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                         generator=gen, device="cuda")).to(torch.bfloat16)
+    on_ranks = spmd.running if mesh is not None else contextlib.nullcontext
+    if mesh is not None:
+        params = spmd.distribute(params, SH.spec_tree_like(SH.lm_param_specs(cfg, mesh),
+                                                           params), mesh)
+        seq = SH.decode_cache_seq_shard(cfg, mesh, CELLS_B)
+        cache = spmd.distribute(cache, SH.lm_cache_specs(cfg, mesh, seq_shard=seq,
+                                                         batch_size=CELLS_B), mesh)
+        out["cache_placements"] = [repr(p) for p in cache["k"].placements]
+    full = (lambda t: t.full_tensor() if spmd.is_dtensor(t) else t)
+    k0, v0 = cache["k"][0], cache["v"][0]
+    # row 12 alone, before the step writes its key: a comparison, so its
+    # launches are put back
+    saved = dict(fd.LAUNCHES)
+    with on_ranks():
+        if mesh is None:
+            got = fd.flash_decode_cache(q, k0, v0, lens)
+        else:
+            got = full(spmd.flash_decode_on_local_shards(spmd.distribute(q, SH.P(), mesh),
+                                                         k0, v0, lens))
+        kf, vf = full(k0), full(v0)
+    want = fd.flash_decode_cache_plain(q, kf, vf, lens)
+    row = {"max_abs_err": check_close(got, want, f"ranks_cells {out['tag']} row 12 "
+                                      "on the history", **flash_tol(want)),
+           "max_abs": float(want.float().abs().max()),
+           "lens_min_max": [int(lens.min()), int(lens.max())]}
+    if mesh is None or mesh.get_rank() == 0:
+        np.save(RANKS_DIR / f"{out['job']}_row12.npy", got.float().cpu().numpy())
+    del kf, vf, want, got
+    # this process's launch: its block of positions, lens clipped to it
+    kl = k0.to_local() if spmd.is_dtensor(k0) else k0
+    vl = v0.to_local() if spmd.is_dtensor(v0) else v0
+    lo = 0 if mesh is None else mesh.get_local_rank("model") * kl.shape[1]
+    mine = torch.clamp(lens.long() - lo, 0, kl.shape[1]).to(torch.int32)
+    keys = int(mine.sum()) * cfg.n_kv_heads
+    row["block"] = [lo, lo + kl.shape[1]]
+    row["valid_keys"] = keys
+    row["bound_ms"], row["bound_by"] = flash_bound(keys, CELLS_B * cfg.n_kv_heads, q.shape[2],
+                                                   cfg.head_dim, 2, 2)
+    row["lse_ms"] = time_uncounted(lambda: fd.flash_decode_cache(q, kl, vl, mine,
+                                                                 return_lse=True))
+    row["ms"] = time_uncounted(lambda: fd.flash_decode_cache(q, kl, vl, mine))
+    row["plain_ms"] = time_ms(lambda: fd.flash_decode_cache_plain(q, kl, vl, mine,
+                                                                  return_lse=True))
+    if mesh is not None:
+        qd = spmd.distribute(q, SH.P(), mesh)
+
+        def combined():
+            with spmd.running():
+                return spmd.flash_decode_on_local_shards(qd, k0, v0, lens).to_local()
+
+        row["combined_ms"] = time_uncounted(combined)
+    fd.LAUNCHES.update(saved)
+    out["row12"] = row
+    # the decode step, every layer through row 12
+    fd.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with on_ranks():
+        logits, _ = T.decode_step(params, cfg, cache, token, use_flash_kernel=True)
+        logits = full(logits).float()
+    torch.cuda.synchronize()
+    out["decode_step_s"] = time.perf_counter() - t
+    out["decode_launches"] = dict(fd.LAUNCHES)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"ranks_cells: non-finite decode logits on {out['tag']}")
+    if mesh is None or mesh.get_rank() == 0:
+        np.save(RANKS_DIR / f"{out['job']}_decode.npy", logits.cpu().numpy())
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rank_cells(tag: str) -> dict:
+    """ranks_cells: ``cells_gloo``, two gloo ranks sharing the card on a
+    (1, 2) ("data", "model") mesh; ``cells_one``, one NCCL rank, the
+    plain program on whole tensors.  The GNN cells (``_cells_gnn``), the
+    stream cells (``_cells_stream``) and row 12 on a sequence-sharded
+    cache (``_cells_decode``); the answers go to build/ranks/."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    world = dist.get_world_size()
+    mesh = None if world == 1 else mesh_lib.rank_mesh((1, world), ("data", "model"),
+                                                      device="cuda")
+    out = {"tag": tag, "job": tag.rsplit("_", 1)[0], "world": world, "part_s": {}}
+    for part, fn in (("gcn-cora", lambda: _cells_gnn(mesh, out, "gcn-cora", CELLS_EDGES)),
+                     ("graphsage-reddit",
+                      lambda: _cells_gnn(mesh, out, "graphsage-reddit", CELLS_SAGE_EDGES)),
+                     ("stream", lambda: _cells_stream(mesh, out)),
+                     ("decode", lambda: _cells_decode(mesh, out))):
+        t = time.perf_counter()
+        fn()
+        out["part_s"][part] = time.perf_counter() - t
+        # progress on the child's error output, where a failed phase shows it
+        print(json.dumps({"tag": tag, "part": part, "s": out["part_s"][part],
+                          "peak_bytes": torch.cuda.max_memory_allocated()}),
+              file=sys.stderr, flush=True)
+    from repro_torch.dist import spmd
+
+    out["host_copied"] = dict(spmd.HOST_COPIED)
+    if mesh is not None:
+        dist.barrier()
+    out["child_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 RANK_FNS = {"engines": rank_engines, "stream": rank_stream, "moe": rank_moe,
-            "train": rank_train, "tp": rank_tp}
+            "train": rank_train, "tp": rank_tp, "cells": rank_cells}
 
 
 def rank_job(job: str, rank: int) -> int:
@@ -3685,7 +4106,7 @@ def start_rank_jobs(jobs=None) -> dict:
     this one exits; each reads a copy of the autotuner's table."""
     if jobs is None:
         jobs = [j for j in RANK_JOBS
-                if j not in TRAIN_JOBS + TP_JOBS and j not in LATE_JOBS]
+                if j not in TRAIN_JOBS + TP_JOBS + CELLS_JOBS and j not in LATE_JOBS]
     jobs = list(jobs)
     RANKS_DIR.mkdir(parents=True, exist_ok=True)
     for f in RANKS_DIR.glob("*"):
@@ -3704,7 +4125,7 @@ def start_rank_jobs(jobs=None) -> dict:
             if TUNE_TABLE.exists():
                 shutil.copy(TUNE_TABLE, tune)
             env = dict(os.environ, OMP_NUM_THREADS="2", REPRO_TORCH_AUTOTUNE_CACHE=str(tune))
-            if job in TP_JOBS:  # three processes' states on one card, freed and made anew
+            if job in TP_JOBS + CELLS_JOBS:  # three processes on one card, freeing and making
                 env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
             err = open(RANKS_DIR / f"{job}_{r}.err", "w")
             p = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-job",
@@ -4085,6 +4506,104 @@ def phase_ranks_tp(procs: dict, t0: float, smi: str) -> dict:
            "one_rank": {k: one[k] for k in keys},
            "ranks": [{k: r[k] for k in keys} | {"host_copied": r["host_copied"]}
                      for r in ranks]}
+    emit(out)
+    return out
+
+
+def phase_ranks_cells(procs: dict, t0: float, smi: str) -> dict:
+    """ranks_cells (``rank_cells``): the two gloo ranks against the
+    one-rank child.  The GNN cells: losses and grad norms within
+    TP_LOSS_RTOL, every leaf within ranks_tp's float32 class
+    (``_leaf_errors``); the stream cells' results bit for bit; row 12 on
+    the sequence-sharded cache within one bf16 rounding of the plain
+    version on the gathered layer (in the children) and within two of the
+    one rank's launch, launched once a layer by the decode step on each
+    rank, whose logits are within TP_BF16_RTOL of the one rank's."""
+    import torch
+
+    from repro_torch.configs import smollm_360m
+    from repro_torch.optim import adamw
+
+    res = wait_rank_jobs(procs, CELLS_JOBS, t0)
+    one, ranks = res["cells_one"][0], res["cells_gloo"]
+    gnn = {}
+    for arch in ("gcn-cora", "graphsage-reddit"):
+        loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for r in ranks
+                       for a, b in zip(r[arch]["steps"], one[arch]["steps"])
+                       for k in ("loss", "grad_norm"))
+        if loss_err > TP_LOSS_RTOL:
+            raise AssertionError(f"ranks_cells: {arch} losses off by {loss_err} of one rank's")
+        want = np.load(RANKS_DIR / f"cells_one_{arch}.npz")
+        got = np.load(RANKS_DIR / f"cells_gloo_{arch}.npz")
+        paths = list(want.files)
+        lr = adamw.wsd_schedule(**CELLS_LR)
+        lr_sum = float(sum(float(lr(s)) for s in range(CELLS_STEPS)))
+        errs = _leaf_errors([torch.from_numpy(got[p]) for p in paths],
+                            [torch.from_numpy(want[p]) for p in paths], paths, lr_sum,
+                            {p: torch.from_numpy(want[p]) for p in paths
+                             if p.startswith(".opt/.m")})
+        if errs["worst_over_tol"] > 1 or not errs["step_equal"]:
+            raise AssertionError(f"ranks_cells: {arch} leaves {errs}")
+        gnn[arch] = {"config": f"{arch} FULL float32", "shape": "ogb_products",
+                     "nodes": one[arch]["nodes"], "nodes_padded": one[arch]["nodes_padded"],
+                     "edges": one[arch]["edges"], "edges_padded": one[arch]["edges_padded"],
+                     "loss_max_rel_err": loss_err, "leaves": errs,
+                     "losses": [[h["loss"] for h in r[arch]["steps"]] for r in [one] + ranks],
+                     "s_per_step": {"one_rank": one[arch]["step_s"],
+                                    "ranks": [r[arch]["step_s"] for r in ranks]},
+                     "peak_bytes": {"one_rank": one[arch]["peak_bytes"],
+                                    "ranks": [r[arch]["peak_bytes"] for r in ranks]},
+                     "host_copied_per_step": ranks[0][arch]["host_copied_per_step"]}
+    stream = {k: v for k, v in one["stream"].items() if not isinstance(v, dict)}
+    for cell in ("update_2m", "update_2m_overlay", "query_bfs", "decode_pool"):
+        want = one["stream"][cell]["digests"]
+        for r in ranks:
+            if r["stream"][cell]["digests"] != want:
+                raise AssertionError(f"ranks_cells: {cell} on rank {r['rank']} "
+                                     f"{r['stream'][cell]['digests']} against {want}")
+        stream[cell] = {"bit_identical": True,
+                        "s": {"one_rank": one["stream"][cell]["s"],
+                              "ranks": [r["stream"][cell]["s"] for r in ranks]},
+                        "peak_bytes": {"one_rank": one["stream"][cell]["peak_bytes"],
+                                       "ranks": [r["stream"][cell]["peak_bytes"]
+                                                 for r in ranks]},
+                        **({"rounds": one["stream"][cell]["rounds"]}
+                           if cell == "query_bfs" else {})}
+    n_layers = smollm_360m.FULL.n_layers
+    for r in ranks:
+        if "Shard(dim=2)" not in r["cache_placements"]:
+            raise AssertionError(f"ranks_cells: the cache laid out {r['cache_placements']}, "
+                                 "not on the sequence")
+        if r["decode_launches"]["flash_decode"] != n_layers:
+            raise AssertionError(f"ranks_cells: rank {r['rank']} launched row 12 "
+                                 f"{r['decode_launches']} times, not {n_layers}")
+    want12 = np.load(RANKS_DIR / "cells_one_row12.npy")
+    row12_err = float(np.abs(np.load(RANKS_DIR / "cells_gloo_row12.npy") - want12).max())
+    if not row12_err <= FLASH_TOL["bfloat16"] * 2 * float(np.abs(want12).max()):
+        raise AssertionError(f"ranks_cells: row 12 on the sequence-sharded cache off by "
+                             f"{row12_err} of the one rank's launch")
+    w_log = np.load(RANKS_DIR / "cells_one_decode.npy")
+    g_log = np.load(RANKS_DIR / "cells_gloo_decode.npy")
+    decode_err, decode_max = float(np.abs(g_log - w_log).max()), float(np.abs(w_log).max())
+    if not decode_err <= TP_BF16_RTOL * decode_max:
+        raise AssertionError(f"ranks_cells: decode logits off by {decode_err} (max {decode_max})")
+    out = {"phase": "ranks_cells", "card": smi, "mesh": [1, 2], "gnn": gnn,
+           "stream": {"config": "aspen-stream FULL", "pool_slots": CELLS_POOL,
+                      "batch_slots": CELLS_BATCH, "n_nodes": CELLS_N, **stream},
+           "row12_seq_sharded": {
+               "config": "smollm-360m FULL bf16", "B": CELLS_B, "cache": CELLS_CACHE,
+               "cache_placements": ranks[0]["cache_placements"],
+               "ranks": [r["row12"] for r in ranks], "one_rank": one["row12"],
+               "ranks_vs_one_max_abs_err": row12_err,
+               "rank_launches": [r["decode_launches"]["flash_decode"] for r in ranks],
+               "one_rank_launches": one["decode_launches"]["flash_decode"],
+               "decode_max_abs_err": decode_err, "decode_max_abs": decode_max,
+               "decode_step_s": {"one_rank": one["decode_step_s"],
+                                 "ranks": [r["decode_step_s"] for r in ranks]}},
+           "part_s": {"one_rank": one["part_s"], "ranks": [r["part_s"] for r in ranks]},
+           "child_peak_bytes": {"one_rank": one["child_peak_bytes"],
+                                "ranks": [r["child_peak_bytes"] for r in ranks]},
+           "host_copied": ranks[0]["host_copied"]}
     emit(out)
     return out
 
@@ -4702,6 +5221,29 @@ def flash_kernel_row(name: str, params, cfg, cache, last_tok) -> dict:
         fd.flash_decode_cache(q0, kc, vc, lens)
 
     k["pipelined_ms_argtypes_per_call"] = time_uncounted(fresh_argtypes, time_ms_pipelined)
+    # the optional log-sum-exp (a sequence-sharded cache's ranks combine
+    # by it): the output's bits as without it, the lse against the plain
+    # version's, its time beside the call without it
+    o_lse, lse = fd.flash_decode_cache(q0, kc, vc, lens, return_lse=True)
+    _, lse_want = fd.flash_decode_cache_plain(q0, kc, vc, lens, return_lse=True)
+    if not torch.equal(o_lse, got):
+        raise AssertionError(f"{name} layer 0 kernel: the output with lse differs in its bits")
+    live = torch.isfinite(lse_want)
+    if not torch.equal(live, torch.isfinite(lse)):
+        raise AssertionError(f"{name} layer 0 kernel: lse -inf at other rows")
+    k["lse"] = {
+        "output_same_bits": True,
+        "max_abs_err": check_close(lse[live], lse_want[live], f"{name} layer 0 kernel lse",
+                                   1e-5, 1e-5 * float(lse_want[live].abs().max())),
+        "ms": time_uncounted(lambda: fd.flash_decode_cache(q0, kc, vc, lens, return_lse=True)),
+        "pipelined_ms": time_uncounted(
+            lambda: fd.flash_decode_cache(q0, kc, vc, lens, return_lse=True),
+            time_ms_pipelined),
+        "no_lse_ms_again": time_uncounted(lambda: fd.flash_decode_cache(q0, kc, vc, lens)),
+        "same_bits": same_bits(
+            lambda: fd.flash_decode_cache(q0, kc, vc, lens, return_lse=True)[1],
+            f"{name} layer 0 kernel lse"),
+    }
     fd.LAUNCHES.update(saved)
     return k
 
@@ -6118,8 +6660,15 @@ def main() -> int:
     dry_proc = start_dryrun_cells()  # host work, beside the card's phases
     run("kernels", phase_kernels)
     run("decode_kernels", phase_decode_kernels)
+    # the cells' children (up to 60 GB of the card) run beside the stream
+    # phases, whose parent is host work on 1.5 GB of the card, and end
+    # before scale; the kernel phases' cached blocks leave the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_cells, cells_procs = time.perf_counter(), start_rank_jobs(CELLS_JOBS)
     stream_launches, plain_stream = run("stream", phase_stream)
     host_launches = run("host_decode", phase_host_decode, plain_stream)
+    cells_res = run("ranks_cells", phase_ranks_cells, cells_procs, t_cells, smi)
     g, aux, scale_launches = run("scale", phase_scale)
     cases = run("scale_kernels", phase_scale_kernels, g, aux)
     padded = run("scale_decode", phase_scale_decode, g)
@@ -6129,7 +6678,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run("compressed_kernels", phase_compressed_kernels)
+    # the model-axis children (up to 66 GB of the card) run beside
+    # compressed_stream (host work, 1.6 GB of the card in the parent):
+    # compressed_kernels' cached blocks leave the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_tp, tp_procs = time.perf_counter(), start_rank_jobs(TP_JOBS)
     cstream_launches = run("compressed_stream", phase_compressed_stream, plain_stream)
+    tp = run("ranks_tp", phase_ranks_tp, tp_procs, t_tp, smi)
     serve_launches = run("graph_serve", phase_graph_serve, plain_stream)
     sh_stream = run("sharded_stream", phase_sharded_stream, plain_stream)
     del plain_stream
@@ -6142,9 +6698,6 @@ def main() -> int:
     # the training children start once the stream, engine and MoE children end
     t_train, train_procs = time.perf_counter(), start_rank_jobs(TRAIN_JOBS)
     run("ranks_train", phase_ranks_train, train_procs, t_train)
-    # the model-axis children start once the training children end
-    t_tp, tp_procs = time.perf_counter(), start_rank_jobs(TP_JOBS)
-    tp = run("ranks_tp", phase_ranks_tp, tp_procs, t_tp, smi)
     cscale_launches, ccases = run("compressed_scale", phase_compressed_scale, plain_raises)
     gc.collect()  # the compressed scale pools leave the card here
     torch.cuda.empty_cache()
@@ -6306,6 +6859,14 @@ def main() -> int:
         # the one-rank child's
         "rank_launches": tp["serve"]["rank_launches"],
         "one_rank_tp_launches": tp["serve"]["one_rank_launches"],
+        # ranks_cells' children: each gloo rank's launches on its block of a
+        # sequence-sharded cache (a decode step), and the one-rank child's;
+        # each rank's launch on its block, with the log-sum-exp
+        "seq_sharded_launches": cells_res["row12_seq_sharded"]["rank_launches"],
+        "one_rank_cells_launches": cells_res["row12_seq_sharded"]["one_rank_launches"],
+        "seq_sharded": {key: [r[key] for r in cells_res["row12_seq_sharded"]["ranks"]]
+                        for key in ("ms", "lse_ms", "combined_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "valid_keys", "max_abs_err")},
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -6314,6 +6875,7 @@ def main() -> int:
         "library_ms": k["library_ms"],
         "pipelined_ms": k["pipelined_ms"],
         "flash_route": k["route"],
+        "lse": k["lse"],
         "workspace_bytes": k["workspace_bytes"],
         "decode_32k": {key: d32k["kernel"][key]
                        for key in ("ms", "pipelined_ms", "bound_ms", "library_ms", "route")},

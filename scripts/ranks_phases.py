@@ -3,6 +3,7 @@
 
     python3 scripts/ranks_phases.py            # from the repo root
     python3 scripts/ranks_phases.py --tp       # the kernels' build and ranks_tp only (~3 min)
+    python3 scripts/ranks_phases.py --cells    # the build, ranks_cells and lm_decode_long
 
 Builds the kernels, runs chip_smoke's ``scale`` and ``sharded_scale``
 phases (which write the flat engine's answers to
@@ -14,7 +15,10 @@ at B 1 x S 4096.  Prints each
 phase's JSON line as chip_smoke does, and each part's wall seconds.
 With ``--tp``: the build (``env``) and the ``ranks_tp`` phase alone
 (qwen2.5-3b FULL on a (1, 2) mesh of two gloo ranks against one NCCL
-rank).
+rank).  With ``--cells``: the build, the ``ranks_cells`` phase (the GNN
+and aspen-stream cells and row 12 on a sequence-sharded cache, two gloo
+ranks on a (1, 2) mesh against one NCCL rank) and ``lm_decode_long``
+(row 12 at its table shape, with and without its log-sum-exp).
 """
 import gc
 import os
@@ -44,6 +48,14 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     cs.phase_env(smi)
+    if "--cells" in sys.argv[1:]:
+        t_cells = time.perf_counter()
+        cs.phase_ranks_cells(cs.start_rank_jobs(cs.CELLS_JOBS), t_cells, smi)
+        cs.emit({"ranks_cells_s": time.perf_counter() - t_cells})
+        t_long = time.perf_counter()
+        cs.phase_lm_decode_long()
+        cs.emit({"lm_decode_long_s": time.perf_counter() - t_long})
+        return 0
     if "--tp" in sys.argv[1:]:
         t_tp = time.perf_counter()
         cs.phase_ranks_tp(cs.start_rank_jobs(cs.TP_JOBS), t_tp, smi)

@@ -55,8 +55,11 @@ from .base import DENSE_THRESHOLD_DENOM, HOST_SYNCS, ArrayOps, TraversalEngine
 
 
 def _sync(*flags: torch.Tensor) -> list:
-    """One blocking device->host read of a few scalars (one HOST_SYNCS)."""
+    """One blocking device->host read of a few scalars (one HOST_SYNCS).
+    A flag laid out over ranks (a DTensor) is read as its logical value,
+    the same on every rank."""
     HOST_SYNCS.bump()
+    flags = [f.full_tensor() if hasattr(f, "full_tensor") else f for f in flags]
     return torch.stack([f.reshape(()).to(torch.int64) for f in flags]).tolist()
 
 

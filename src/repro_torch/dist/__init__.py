@@ -9,9 +9,11 @@ Real ranks start with ``launch.mesh.init_ranks`` and lay a ``(d, m)``
 ``train.train_step.make_train_step(mesh=, specs=)`` trains ZeRO-1 on a
 ``(k, 1)`` mesh and tensor-parallel on any model axis above 1; decode
 and ``serve.decode.generate`` run on parameters laid out by
-``spmd.distribute`` (flash decode on a kv-head-sharded cache launches on
-each rank's heads); the checkpoints re-shard onto any ``(d, m)`` mesh
-(``checkpoint.save(specs=)``, ``restore(mesh=, target_specs=)``).  Open
-in ROADMAP item 16: the GNN cells with node-sharded arrays and the
-stream query cell with values, flash decode on a sequence-sharded cache,
-and a four-GPU run."""
+``spmd.distribute`` (flash decode launches on each rank's kv heads, or
+on its block of a sequence-sharded cache, the blocks' outputs combined
+by their log-sum-exps); the GNN cells train with their batches laid out
+by ``launch.cells.gnn_batch_spec_tree`` (``make_train_step(batch_specs=)``,
+nodes over ``model`` for ``ogb_products``), and the aspen-stream cells
+run on lanes sharded over every mesh axis; the checkpoints re-shard onto
+any ``(d, m)`` mesh (``checkpoint.save(specs=)``, ``restore(mesh=,
+target_specs=)``).  Open in ROADMAP item 16: a four-GPU run."""

@@ -37,7 +37,9 @@ quietly:
     batch and head shards (``attention_on_local_shards``), and so does
     the flash-decode kernel on a cache sharded on its kv heads
     (``flash_decode_on_local_shards``: row 12 launches on each rank's
-    heads); ``models.layers`` routes DTensors to both;
+    heads), and on a cache sharded on the sequence, where each rank's
+    launch returns its log-sum-exp and the ranks combine their partial
+    outputs in two all-reduces; ``models.layers`` routes DTensors to both;
   * a view DTensor cannot lay out (heads over ``model`` split into kv
     groups where the kv heads do not divide the axis) gathers the one
     mesh dim in its way and tries again (``SpmdMode._view``).
@@ -300,6 +302,7 @@ class SpmdMode(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             if self._depth:
                 return NotImplemented  # an op DTensor runs for an outer one
+            args, kwargs = self._reduce_integer_partials(args, kwargs)
             if func._opname in _INDEX_OPS and _sharded_on_indexed(args[0], args[1]):
                 return self._masked_local(func, args, kwargs)
             if func._opname == "gather" and _sharded_on_indexed(
@@ -372,6 +375,36 @@ class SpmdMode(TorchDispatchMode):
         if name.endswith("_"):
             return args[0].copy_(res)
         return res
+
+    def _reduce_integer_partials(self, args, kwargs):
+        """Every integer or boolean operand that is a pending sum over some
+        mesh dims (``Partial``, a count summed over sharded entries)
+        all-reduced first: beside it DTensor would lay a replicated
+        integer operand out as a partial by dividing it over the ranks,
+        which truncates (F6: ``n + keep.sum()`` lost up to a rank's
+        remainder)."""
+
+        def pending(a):
+            return (isinstance(a, DTensor) and not a.dtype.is_floating_point
+                    and not a.dtype.is_complex and any(p.is_partial() for p in a.placements))
+
+        if not any(pending(a) for a in _tensors((args, kwargs))):
+            return args, kwargs
+
+        def fix(a):
+            if isinstance(a, (list, tuple)):
+                return type(a)(fix(x) for x in a)
+            if not pending(a):
+                return a
+            return a.redistribute(a.device_mesh, [Replicate() if p.is_partial() else p
+                                                  for p in a.placements])
+
+        self._depth += 1
+        try:
+            with self:  # the all-reduces run and are recorded as the run's
+                return fix(args), {k: fix(v) for k, v in kwargs.items()}
+        finally:
+            self._depth -= 1
 
     def _on_dtensors(self, func, args, kwargs):
         self._depth += 1
@@ -915,20 +948,19 @@ def attention_on_local_shards(q, k, v, cfg, scale, triangular):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
-FLASH_SEQ_SHARDED = ("flash decode on a sequence-sharded cache needs each rank's "
-                     "log-sum-exp to combine the partial results (ROADMAP.md item 16); "
-                     "decode it with use_flash_kernel=False")
-
-
 def flash_decode_on_local_shards(q, k_cache, v_cache, lens):
     """``kernels.flash_decode.flash_decode_cache`` on DTensors: q (B, KV,
     G, d), the caches (B, S, KV, d) and lens (B,).  Each rank launches
-    the kernel on its own batch and kv-head shards of the cache (under
-    ``local_map``), q and lens laid out to match; a mesh dim that
-    replicates the cache replicates them too.  A cache sharded on the
-    sequence raises ``NotImplementedError``: the kernel's partial
-    results would need each rank's log-sum-exp to combine."""
-    from torch.distributed.tensor.experimental import local_map
+    the kernel on its own batch, kv-head and sequence shards of the
+    cache, q and lens laid out to match (a mesh dim that shards the
+    sequence or replicates the cache replicates them).  Over the mesh
+    dims that shard the sequence, each rank's launch reads its own block
+    of positions with ``lens`` clipped to that block (0 where the block
+    holds none of a row) and returns its log-sum-exp too; the ranks then
+    combine their partial outputs with one all-reduce MAX of the
+    log-sum-exps and one all-reduce SUM of ``exp(lse - max) * o`` beside
+    ``exp(lse - max)``, and never gather the cache."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     from ..kernels import flash_decode as fd
 
@@ -936,24 +968,38 @@ def flash_decode_on_local_shards(q, k_cache, v_cache, lens):
     if k_cache.placements != v_cache.placements:
         raise ValueError(f"k and v caches laid out apart: {k_cache.placements} "
                          f"and {v_cache.placements}")
-    pq, pkv, plen = [], [], []
-    for p in k_cache.placements:
-        if isinstance(p, Shard) and p.dim == 1:
-            raise NotImplementedError(FLASH_SEQ_SHARDED)
+    pq, plen, seq_dims = [], [], []
+    for i, p in enumerate(k_cache.placements):
         if isinstance(p, Shard) and p.dim in (0, 2):
             pq.append(Shard(0 if p.dim == 0 else 1))
             plen.append(Shard(0) if p.dim == 0 else Replicate())
-        elif p.is_replicate():
+        elif p.is_replicate() or (isinstance(p, Shard) and p.dim == 1):
             pq.append(Replicate())
             plen.append(Replicate())
+            if not p.is_replicate():
+                seq_dims.append(i)
         else:
             raise ValueError(f"a cache laid out as {k_cache.placements}")
-        pkv.append(p)
     if not is_dtensor(lens):
         lens = _replicated(lens, mesh)
-    return local_map(fd.flash_decode_cache, out_placements=pq,
-                     in_placements=(pq, pkv, pkv, plen), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k_cache, v_cache, lens)
+    with running() as mode:
+        q_l = q.redistribute(mesh, pq).to_local()
+        lens_l = lens.redistribute(mesh, plen).to_local()
+        k_l, v_l = k_cache.to_local(), v_cache.to_local()
+        if not seq_dims:
+            out = fd.flash_decode_cache(q_l, k_l, v_l, lens_l)
+        else:
+            local_shape, offset = compute_local_shape_and_global_offset(
+                tuple(k_cache.shape), mesh, k_cache.placements)
+            mine = torch.clamp(lens_l.long() - offset[1], 0, local_shape[1]).to(torch.int32)
+            o, lse = fd.flash_decode_cache(q_l, k_l, v_l, mine, return_lse=True)
+            top = mode._all_reduce(lse, mesh, seq_dims, "max")
+            w = torch.exp(lse - torch.where(torch.isfinite(top), top, 0.0))
+            parts = torch.cat([w[..., None] * o.float(), w[..., None]], dim=-1)
+            parts = mode._all_reduce(parts, mesh, seq_dims, "sum")
+            out = (parts[..., :-1] / torch.clamp(parts[..., -1:], min=1e-30)).to(q.dtype)
+    return DTensor.from_local(out, mesh, pq, run_check=False, shape=q.shape,
+                              stride=_contiguous_stride(q.shape))
 
 
 def _replicated(t, mesh):

@@ -68,6 +68,13 @@
 //     block merges the partials in split order (so the result does not
 //     depend on which block came last), writes acc / max(l, 1e-30) in q's
 //     dtype and sets the counter back to 0 for the next call.
+//   * Optional log-sum-exp: given an `lse` pointer, the block that writes
+//     a row's output (the one block with one split, else the combine)
+//     also writes each query row's natural log-sum-exp of its scaled,
+//     masked scores, float32 (B * n_kv, Q): ln 2 * (m + log2 l) in the
+//     kernel's base-2 terms, -inf for a row of length 0.  Ranks that hold
+//     a sequence-sharded cache combine their partial outputs with it.
+//     Without it (a null pointer) nothing else changes.
 //   * The cache is read where it lies, through (batch, position, head)
 //     strides: attention_decode passes one layer's (B, S_max, n_kv, d)
 //     slice with no transpose (the reference copies the whole cache to
@@ -93,6 +100,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
 
@@ -221,18 +229,24 @@ __device__ __forceinline__ void store_any(void* out, int q_bf16, long long at, f
 // it, and the row's last piece (the counter, set back to 0 by that block)
 // merges the row's partials, slots first_slot .. first_slot + n_parts - 1,
 // in slot order, whichever came last.  `bar` / `nthr` name the barrier of
-// the `nthr` threads that run this.
+// the `nthr` threads that run this.  The block that writes the output
+// writes the row's log-sum-exp too where `lse` is not null.
+__device__ __forceinline__ float natural_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : neg_inf();
+}
+
 __device__ void finish_piece(const float* sm_acc, int DP, const float* sm_ml, int QM, int* sm_flag,
                              float* __restrict__ work, long long n_slots, long long slot,
                              long long first_slot, int n_parts, unsigned* __restrict__ counter,
-                             void* __restrict__ out, int q_bf16, long long row, int Q, int d,
-                             int tid, int nthr, int bar) {
+                             void* __restrict__ out, float* __restrict__ lse, int q_bf16,
+                             long long row, int Q, int d, int tid, int nthr, int bar) {
   const long long o0 = row * Q * d;
   if (n_parts == 1) {
     for (int i = tid; i < Q * d; i += nthr) {
       const int qr = i / d;
       store_any(out, q_bf16, o0 + i, sm_acc[qr * DP + i % d] / fmaxf(sm_ml[QM + qr], 1e-30f));
     }
+    if (lse != nullptr && tid < Q) lse[row * Q + tid] = natural_lse(sm_ml[tid], sm_ml[QM + tid]);
     return;
   }
   float* ml_out = work + slot * Q * 2;
@@ -264,6 +278,7 @@ __device__ void finish_piece(const float* sm_acc, int DP, const float* sm_ml, in
       A += __ldcg(acc + static_cast<long long>(s) * Q * d + i) * fs;
     }
     store_any(out, q_bf16, o0 + i, A / fmaxf(L, 1e-30f));
+    if (lse != nullptr && i % d == 0) lse[row * Q + qr] = natural_lse(ms, L);
   }
   if (tid == 0) *counter = 0u;  // ready for the next call on this stream
 }
@@ -384,7 +399,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_cpasync_kernel(const void* __restrict__ q, int q_bf16, const void* __restrict__ k,
                          const void* __restrict__ v, const int* __restrict__ lengths,
                          float* __restrict__ work, unsigned* __restrict__ counters,
-                         void* __restrict__ out, int n_kv, int S, int Q, int d, long long ksb,
+                         void* __restrict__ out, float* __restrict__ lse, int n_kv, int S, int Q,
+                         int d, long long ksb,
                          long long kss, long long ksh, long long vsb, long long vss,
                          long long vsh, int chunk, int vec, float qscale) {
   constexpr int KB = keys_per_group(QM);
@@ -556,7 +572,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long n_slots = static_cast<long long>(BH) * n_split;
   finish_piece(sm_acc, DP, sm_ml, QM, sm_flag, work, n_slots,
                static_cast<long long>(bh) * n_split + split, static_cast<long long>(bh) * n_split,
-               n_split, counters + bh, out, q_bf16, bh, Q, d, threadIdx.x, kThreads, 0);
+               n_split, counters + bh, out, lse, q_bf16, bh, Q, d, threadIdx.x, kThreads, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -609,8 +625,9 @@ __global__ void __launch_bounds__(kTmaThreads, QM <= 8 ? 2 : 1)
     flash_tma_kernel(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, const void* __restrict__ q,
                      int q_bf16, const int* __restrict__ lengths, float* __restrict__ work,
-                     unsigned* __restrict__ counters, void* __restrict__ out, int n_kv, int S,
-                     int Q, int d, int chunk, float qscale) {
+                     unsigned* __restrict__ counters, void* __restrict__ out,
+                     float* __restrict__ lse, int n_kv, int S, int Q, int d, int chunk,
+                     float qscale) {
   constexpr int es = sizeof(TKV);
   constexpr int E = tma_dims_per_lane(QM);
   constexpr int KB = tma_keys_per_group(QM);
@@ -815,7 +832,7 @@ __global__ void __launch_bounds__(kTmaThreads, QM <= 8 ? 2 : 1)
     const long long n_slots = static_cast<long long>(BH) * n_split;
     finish_piece(sm_acc, DP, sm_ml, QM, sm_flag, work, n_slots,
                  static_cast<long long>(bh) * n_split + split, static_cast<long long>(bh) * n_split,
-                 n_split, counters + bh, out, q_bf16, bh, Q, d, tid, kConsumers, 1);
+                 n_split, counters + bh, out, lse, q_bf16, bh, Q, d, tid, kConsumers, 1);
   }
 }
 
@@ -824,10 +841,10 @@ __global__ void __launch_bounds__(kTmaThreads, QM <= 8 ? 2 : 1)
 // ---------------------------------------------------------------------------
 
 using CpAsyncFn = void (*)(const void*, int, const void*, const void*, const int*, float*,
-                           unsigned*, void*, int, int, int, int, long long, long long, long long,
-                           long long, long long, long long, int, int, float);
+                           unsigned*, void*, float*, int, int, int, int, long long, long long,
+                           long long, long long, long long, long long, int, int, float);
 using TmaFn = void (*)(const CUtensorMap, const CUtensorMap, const void*, int, const int*, float*,
-                       unsigned*, void*, int, int, int, int, int, float);
+                       unsigned*, void*, float*, int, int, int, int, int, float);
 
 constexpr int kBuckets[6] = {1, 2, 3, 4, 8, 16};
 
@@ -1061,13 +1078,16 @@ extern "C" int repro_flash_tma_map_ns(const void* base, int kv_bf16, int d, int 
 //            in elements, each its own), float32 (kv_bf16 = 0) or bf16 (1);
 //   lengths  int32 (B,): valid keys of batch row b (clamped to [0, S]);
 //   out      (B * n_kv, Q, d) contiguous, q's dtype;
+//   lse      float32 (B * n_kv, Q) contiguous, each query row's log-sum-exp,
+//            or null (not written);
 //   work     float32, B * n_kv * n_split * Q * (d + 2) (unused with one split);
 //   counters uint32 (B * n_kv,), zero, left zero by the call;
 //   n_split, chunk from repro_flash_decode_plan with the same route
 //   (tma = 1: the TMA route, which needs 16-byte row bytes, used strides
 //   and bases; tma = 0: the cp.async route).
 extern "C" int repro_flash_decode(const void* q, int q_bf16, const void* k, const void* v,
-                                  int kv_bf16, const int* lengths, void* out, float* work,
+                                  int kv_bf16, const int* lengths, void* out, float* lse,
+                                  float* work,
                                   unsigned* counters, int B, int n_kv, int S, int Q, int d,
                                   long long ksb, long long kss, long long ksh, long long vsb,
                                   long long vss, long long vsh, int n_split, int chunk, int tma,
@@ -1095,7 +1115,8 @@ extern "C" int repro_flash_decode(const void* q, int q_bf16, const void* k, cons
     if ((rc = encode(vkey, &vmap)) != 0) return rc;
     const TmaFn fn = reinterpret_cast<TmaFn>(const_cast<void*>(kern.fn));
     fn<<<grid, kern.threads, kern.smem_bytes, st>>>(kmap, vmap, q, q_bf16, lengths, work,
-                                                    counters, out, n_kv, S, Q, d, chunk, qscale);
+                                                    counters, out, lse, n_kv, S, Q, d, chunk,
+                                                    qscale);
     return static_cast<int>(cudaGetLastError());
   }
   // the widest copy vector that every row start and row length allow
@@ -1110,7 +1131,7 @@ extern "C" int repro_flash_decode(const void* q, int q_bf16, const void* k, cons
   if (vec < 4) return static_cast<int>(cudaErrorMisalignedAddress);
   const CpAsyncFn fn = reinterpret_cast<CpAsyncFn>(const_cast<void*>(kern.fn));
   fn<<<grid, kern.threads, kern.smem_bytes, st>>>(q, q_bf16, k, v, lengths, work, counters, out,
-                                                  n_kv, S, Q, d, ksb, kss, ksh, vsb, vss, vsh,
-                                                  chunk, vec, qscale);
+                                                  lse, n_kv, S, Q, d, ksb, kss, ksh, vsb, vss,
+                                                  vsh, chunk, vec, qscale);
   return static_cast<int>(cudaGetLastError());
 }

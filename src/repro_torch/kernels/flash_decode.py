@@ -22,6 +22,14 @@ padding to the reference's 512-key blocks.
 q (B, n_kv, Q, d), one layer's cache slices (B, S_max, n_kv, d) read in
 place through their strides, lengths (B,) per sequence.
 
+``return_lse=True`` (either entry, and the plain versions) also returns
+each query row's log-sum-exp, float32 (BH, Q) ((B, n_kv, Q) from the
+strided entry): ``log sum_t exp(q[r] k[r, t] / sqrt(d))`` over the valid
+positions, -inf for a row of length 0.  Partial results over blocks of
+positions combine with it (``dist.spmd.flash_decode_on_local_shards`` on
+a sequence-sharded cache).  The kernel writes it from the block that
+writes the row's output; without it the output's bits do not change.
+
 Routes: a cache whose row bytes (d * elem) and used strides are multiples
 of 16 bytes, with both bases 16-byte aligned and S >= 1, takes the TMA
 route (``tma_route``); any other (d = 12 in bf16 has 24-byte rows) the
@@ -83,10 +91,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Ten
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor, return_lse: bool = False):
     """Plain PyTorch version: the masked softmax in float32 with einsums,
     guarded as the kernel is (masked positions weigh 0, a row with no
-    valid position gives 0)."""
+    valid position gives 0 and log-sum-exp -inf)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.einsum("bqd,bsd->bqs", qf, kf) * scale
@@ -98,11 +106,14 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bqs,bsd->bqd", p, vf) / torch.clamp(l, min=1e-30)
-    return o.to(q.dtype)
+    if not return_lse:
+        return o.to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), -torch.inf)[..., 0]
+    return o.to(q.dtype), lse
 
 
 def flash_decode_cache_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                             lengths: torch.Tensor) -> torch.Tensor:
+                             lengths: torch.Tensor, return_lse: bool = False):
     """Plain version of the strided entry: the reference's transposed
     (B * n_kv, S_max, d) copies of the cache, each sequence's length
     repeated over its kv heads, then ``flash_decode_plain``."""
@@ -110,8 +121,11 @@ def flash_decode_cache_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: to
     S = k_cache.shape[1]
     kf = k_cache.permute(0, 2, 1, 3).reshape(B * n_kv, S, d)
     vf = v_cache.permute(0, 2, 1, 3).reshape(B * n_kv, S, d)
-    o = flash_decode_plain(q.reshape(B * n_kv, Q, d), kf, vf, lengths.repeat_interleave(n_kv))
-    return o.reshape(B, n_kv, Q, d)
+    o = flash_decode_plain(q.reshape(B * n_kv, Q, d), kf, vf, lengths.repeat_interleave(n_kv),
+                           return_lse)
+    if not return_lse:
+        return o.reshape(B, n_kv, Q, d)
+    return o[0].reshape(B, n_kv, Q, d), o[1].reshape(B, n_kv, Q)
 
 
 def tma_route(k: torch.Tensor, v: torch.Tensor, sizes, kstrides, vstrides) -> bool:
@@ -149,15 +163,16 @@ def _plan(BH: int, S: int, Q: int, d: int, kv_bf16: int, tma: int, device: torch
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# repro_flash_decode(q, q_bf16, k, v, kv_bf16, lengths, out, work, counters,
+# repro_flash_decode(q, q_bf16, k, v, kv_bf16, lengths, out, lse, work, counters,
 # B, n_kv, S, Q, d, 6 strides, n_split, chunk, tma, stream)
-_ARGTYPES = [_P, _I, _P, _P, _I, _P, _P, _P, _P, *[_I] * 5, *[_L] * 6, _I, _I, _I, _P]
+_ARGTYPES = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, *[_I] * 5, *[_L] * 6, _I, _I, _I, _P]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
-            B: int, n_kv: int, kstrides, vstrides) -> torch.Tensor:
+            B: int, n_kv: int, kstrides, vstrides, return_lse: bool = False):
     """One launch of the kernel; k, v element (b, t, h, j) at
-    b * strides[0] + t * strides[1] + h * strides[2] + j.  The per-row
+    b * strides[0] + t * strides[1] + h * strides[2] + j; with
+    ``return_lse`` also the float32 (BH, Q) log-sum-exp.  The per-row
     counters and the partials are buffers kept per stream
     (``_build.scratch``): a decode step's 32 calls allocate only their
     outputs."""
@@ -177,6 +192,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Te
         lens = lens.to(torch.int32).contiguous()
     n_split, chunk = _plan(BH, S, Q, d, kv_bf16, tma, dev)[:2]
     out = torch.empty_like(q)
+    lse = torch.empty((BH, Q), dtype=torch.float32, device=dev) if return_lse else None
     fn = _build.c_function("flash_decode", "repro_flash_decode", _ARGTYPES)
 
     def launches() -> None:
@@ -184,45 +200,49 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Te
         work = _build.scratch("flash_partials", dev, 4 * workspace_floats(BH, n_split, Q, d))
         _build.call(fn, "repro_flash_decode",
                     [q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
-                     kv_bf16, lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+                     kv_bf16, lens.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), work.data_ptr(),
                      counters.data_ptr(), B, n_kv, S, Q, d, *kstrides, *vstrides, n_split,
                      chunk, tma], dev.index)
 
     _build.launch_with_scratch(launches, LAUNCHES, "flash_decode",
                                "flash_decode_tma" if tma else "flash_decode_cpasync")
-    return out
+    return out if lse is None else (out, lse)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor, return_lse: bool = False):
     """Single-token attention of q (BH, Q, d) over k, v (BH, S, d) with
-    ``lengths`` (BH,) valid keys per row: (BH, Q, d) in q's dtype."""
+    ``lengths`` (BH,) valid keys per row: (BH, Q, d) in q's dtype (and
+    the (BH, Q) log-sum-exp with ``return_lse``)."""
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"flash_decode takes q (BH, Q, d) and k, v (BH, S, d), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     _check(q, k, v, lengths, q.shape[0])
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, lengths)
+        return flash_decode_plain(q, k, v, lengths, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     return _launch(q, k, v, lengths, q.shape[0], 1, (k.stride(0), k.stride(1), 0),
-                   (v.stride(0), v.stride(1), 0))
+                   (v.stride(0), v.stride(1), 0), return_lse)
 
 
 def flash_decode_cache(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor, return_lse: bool = False):
     """The strided entry: q (B, n_kv, Q, d) over one layer's cache slices
     k_cache, v_cache (B, S_max, n_kv, d), as they lie, with ``lengths``
-    (B,) valid positions per sequence: (B, n_kv, Q, d) in q's dtype."""
+    (B,) valid positions per sequence: (B, n_kv, Q, d) in q's dtype (and
+    the (B, n_kv, Q) log-sum-exp with ``return_lse``)."""
     if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape[2] != q.shape[1]:
         raise ValueError(f"flash_decode_cache takes q (B, n_kv, Q, d) and caches "
                          f"(B, S_max, n_kv, d), got {tuple(q.shape)}, {tuple(k_cache.shape)}")
     B, n_kv, Q, d = q.shape
     _check(q, k_cache, v_cache, lengths, B)
     if q.device.type == "cpu":
-        return flash_decode_cache_plain(q, k_cache, v_cache, lengths)
+        return flash_decode_cache_plain(q, k_cache, v_cache, lengths, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_cache: unsupported device {q.device}")
-    return _launch(q, k_cache, v_cache, lengths, B, n_kv,
-                   (k_cache.stride(0), k_cache.stride(1), k_cache.stride(2)),
-                   (v_cache.stride(0), v_cache.stride(1), v_cache.stride(2)))
+    res = _launch(q, k_cache, v_cache, lengths, B, n_kv,
+                  (k_cache.stride(0), k_cache.stride(1), k_cache.stride(2)),
+                  (v_cache.stride(0), v_cache.stride(1), v_cache.stride(2)), return_lse)
+    return res if not return_lse else (res[0], res[1].reshape(B, n_kv, Q))

@@ -284,24 +284,13 @@ def _gnn_cell(cfg: registry.GNNConfig, shape, mesh) -> Cell:
         batched = max(batched, 1)  # molecule readout needs graph_ids
     batch_abs = _gnn_batch_abstract(n, e, d_feat, with_dist, batched)
     state_shape, state_specs = _replicated_state(_gnn_params(cfg, d_feat))
-
-    shard_nodes = kind == "full_large"
-    g_specs_d = SH.gnn_batch_specs(mesh, shard_nodes=shard_nodes)
-    node_p = g_specs_d["x"]
-    g_specs = GraphBatch(
-        x=g_specs_d["x"], src=g_specs_d["src"], dst=g_specs_d["dst"],
-        edge_mask=g_specs_d["edge_mask"], node_mask=g_specs_d["node_mask"],
-        edge_attr=g_specs_d["edge_attr"] if with_dist else None,
-        graph_ids=g_specs_d["graph_ids"] if batched else None,
-    )
+    b_specs = gnn_batch_spec_tree(cfg, shape, mesh)
 
     if cfg.kind == "schnet":
         batch = {"graph": batch_abs, "targets": _sds((batched or 1,), torch.float32)}
-        b_specs = {"graph": g_specs, "targets": P(None)}
         loss = TS.schnet_loss(batched or 1)
     elif cfg.kind == "graphcast":
         batch = {"graph": batch_abs, "targets": _sds((n, cfg.n_classes), torch.float32)}
-        b_specs = {"graph": g_specs, "targets": node_p}
         loss = TS.graphcast_loss()
     else:
         batch = {
@@ -309,8 +298,6 @@ def _gnn_cell(cfg: registry.GNNConfig, shape, mesh) -> Cell:
             "labels": _sds((n,), torch.int32),
             "label_mask": _sds((n,), torch.bool),
         }
-        lbl_p = P("model") if shard_nodes else P(None)
-        b_specs = {"graph": g_specs, "labels": lbl_p, "label_mask": lbl_p}
         loss = TS.gcn_loss(None) if cfg.kind == "gcn" else TS.sage_full_loss()
 
     step = TS.make_train_step(loss, adamw.wsd_schedule(100, 10_000, 1_000, 1e-3))
@@ -324,6 +311,35 @@ def _gnn_cell(cfg: registry.GNNConfig, shape, mesh) -> Cell:
                 (state_specs, _METRICS_SPECS), meta)
 
 
+def gnn_batch_spec_tree(cfg: registry.GNNConfig, shape, mesh):
+    """The batch spec tree of ``cfg``'s train cell on ``shape``, as the
+    reference's cells lay it out (``launch/cells.py:307-334``):
+    ``sage_sampled_specs`` for GraphSAGE's sampled cell; else the graph
+    by ``gnn_batch_specs`` (edges over the batch axes, nodes over
+    ``model`` for the ``full_large`` cell), labels and label mask on the
+    nodes' layout, GraphCast's targets on the node features' and SchNet's
+    replicated.  ``edge_attr`` is SchNet's, ``graph_ids`` a batched
+    cell's or SchNet's."""
+    kind = shape["kind"]
+    if kind == "sampled" and cfg.kind == "graphsage":
+        return SH.sage_sampled_specs(mesh)
+    with_dist = cfg.kind == "schnet"
+    batched = kind == "batched_small" or cfg.kind == "schnet"
+    shard_nodes = kind == "full_large"
+    d = SH.gnn_batch_specs(mesh, shard_nodes=shard_nodes)
+    g_specs = GraphBatch(
+        x=d["x"], src=d["src"], dst=d["dst"], edge_mask=d["edge_mask"],
+        node_mask=d["node_mask"], edge_attr=d["edge_attr"] if with_dist else None,
+        graph_ids=d["graph_ids"] if batched else None,
+    )
+    if cfg.kind == "schnet":
+        return {"graph": g_specs, "targets": P(None)}
+    if cfg.kind == "graphcast":
+        return {"graph": g_specs, "targets": d["x"]}
+    lbl_p = P("model") if shard_nodes else P(None)
+    return {"graph": g_specs, "labels": lbl_p, "label_mask": lbl_p}
+
+
 def _sage_sampled_cell(cfg, shape, mesh) -> Cell:
     bn = shape["batch_nodes"]
     f1, f2 = shape["fanout"]
@@ -335,7 +351,7 @@ def _sage_sampled_cell(cfg, shape, mesh) -> Cell:
         "neigh_masks": [_sds((bn, f1), torch.bool), _sds((bn, f1, f2), torch.bool)],
         "labels": _sds((bn,), torch.int32),
     }
-    b_specs = SH.sage_sampled_specs(mesh)
+    b_specs = gnn_batch_spec_tree(cfg, shape, mesh)
     step = TS.make_train_step(TS.sage_sampled_loss(),
                               adamw.wsd_schedule(100, 10_000, 1_000, 1e-3))
     dh = cfg.d_hidden

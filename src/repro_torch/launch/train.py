@@ -72,12 +72,17 @@ def data_mesh(device=None):
 def train_specs(family: str, cfg, params, mesh):
     """The ``TrainState`` spec tree on ``mesh``: the family's parameter
     specs and their ZeRO-1 moments, as the reference's cells lay them out
-    (``launch/cells.py:76-79`` for the LMs, ``:383`` for DCN-v2)."""
+    (``launch/cells.py:76-79`` for the LMs, ``:383`` for DCN-v2), and the
+    GNN family's replicated state, parameters and moments on ``P()`` with
+    no ZeRO-1 (``:302-305``)."""
     from repro_torch.dist import shardings as SH
     from repro_torch.launch import cells
 
     if family == "lm":
         return cells._lm_state_specs(cfg, mesh, params)
+    if family == "gnn":
+        p_specs = SH.replicated_like(params)
+        return TS.TrainState(p_specs, adamw.AdamWState(SH.P(), p_specs, p_specs))
     p_specs = SH.dcn_param_specs(params, mesh)
     z = SH.zero1_specs(p_specs, params, mesh)
     return TS.TrainState(p_specs, adamw.AdamWState(SH.P(), z, z))

@@ -292,11 +292,10 @@ def attention_decode(
     The new key and value go into the cache in place, at ``cache_len``;
     a row whose ``cache_len`` is at or past S_max writes nothing.  With
     ``use_flash_kernel`` the attention is ``flash_decode_cache``, which
-    reads the cache where it lies; on a cache of DTensors sharded on its
-    kv heads each rank launches it on its own heads
-    (``dist.spmd.flash_decode_on_local_shards``), and on one sharded on
-    the sequence it raises ``NotImplementedError`` (the plain decode runs
-    there under the sharded softmax)."""
+    reads the cache where it lies; on a cache of DTensors each rank
+    launches it on its own shards (``dist.spmd.flash_decode_on_local_shards``):
+    its kv heads, or its block of positions, whose partial outputs the
+    ranks combine by their log-sum-exps."""
     B = x.shape[0]
     S_max = k_cache.shape[1]
     q, k_new, v_new = _qkv(params, cfg, x, cache_len[:, None])
@@ -310,7 +309,7 @@ def attention_decode(
         qf = q.reshape(B, cfg.n_kv_heads, g, cfg.d_head)
         from ..dist import spmd
 
-        if spmd.is_dtensor(k_cache):  # a cache laid out over ranks: each rank's heads
+        if spmd.is_dtensor(k_cache):  # a cache laid out over ranks: each rank's shards
             o = spmd.flash_decode_on_local_shards(qf, k_cache, v_cache, cache_len + 1)
         else:
             o = fd.flash_decode_cache(qf, k_cache, v_cache, cache_len + 1)

@@ -47,7 +47,7 @@ class QueryTicket:
     __slots__ = (
         "tenant", "kind", "source", "params", "pkey", "session",
         "deadline", "t_submit", "t_flush", "t_done", "batch_size",
-        "cached", "fastpath", "_event", "_result", "_error",
+        "cached", "fastpath", "_event", "_result", "_error", "_held",
     )
 
     def __init__(
@@ -79,17 +79,31 @@ class QueryTicket:
         self._event = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
+        self._held = False
 
     # -- service side -------------------------------------------------------
+    def _hold(self) -> None:
+        """Keep the answer from the client until ``_release``: the service
+        frees the ticket's admission slot first, so no client sees its
+        answer while the slot still counts in flight."""
+        self._held = True
+
+    def _release(self) -> None:
+        self._held = False
+        if self.t_done is not None:
+            self._event.set()
+
     def _complete(self, result) -> None:
         self.t_done = time.perf_counter()
         self._result = result
-        self._event.set()
+        if not self._held:
+            self._event.set()
 
     def _fail(self, exc: BaseException) -> None:
         self.t_done = time.perf_counter()
         self._error = exc
-        self._event.set()
+        if not self._held:
+            self._event.set()
 
     # -- client side --------------------------------------------------------
     def done(self) -> bool:

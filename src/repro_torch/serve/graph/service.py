@@ -723,11 +723,12 @@ class GraphQueryService:
                 if v is not None:
                     self.stream.release(v)
 
+        ticket._hold()
         try:
             self._on_lane(fast)
         except BaseException as exc:  # noqa: BLE001 - surfaces at result()
             error = exc
-            if not ticket.done():
+            if ticket.t_done is None:
                 ticket._fail(exc)
         finally:
             with self._lock:
@@ -737,6 +738,7 @@ class GraphQueryService:
                 if error is not None:
                     m.errors += 1
                 self._idle.notify_all()
+            ticket._release()
             if session is not None:
                 session._query_done(ticket)
 
@@ -846,12 +848,14 @@ class GraphQueryService:
                 if v is not None:
                     self.stream.release(v)
 
+        for t in batch:
+            t._hold()
         try:
             self._on_lane(flush)
         except BaseException as exc:  # noqa: BLE001 - fail the tickets, not the service
             error = exc
             for t in batch:
-                if not t.done():
+                if t.t_done is None:
                     t._fail(exc)
         finally:
             with self._lock:
@@ -864,6 +868,8 @@ class GraphQueryService:
                 if error is not None:
                     lane.metrics.errors += len(batch)
                 self._idle.notify_all()
+            for t in batch:
+                t._release()
             for t in batch:
                 if t.session is not None:
                     t.session._query_done(t)

@@ -25,7 +25,9 @@ all-gathered.  Two ranks at one slice each give the one-rank step at
 
 On a ``(d, m)`` mesh with m > 1 (``_model_parallel_step``) the step runs
 on DTensors under ``dist.spmd``: the reference's cells as GSPMD lays
-them out, the same program the dry run counts.
+them out, the same program the dry run counts.  So does a step given
+``batch_specs`` (the GNN cells' layouts, on any mesh): each batch tensor
+is laid out by its spec, not as rows over the data axis.
 """
 from __future__ import annotations
 
@@ -96,6 +98,7 @@ def make_train_step(
     n_micro: int = 1,
     mesh=None,
     specs=None,
+    batch_specs=None,
 ):
     """Generic: loss_of_batch(params, batch) -> scalar.  The step returns
     ``(new TrainState, {"loss", "grad_norm", "lr"})``, the metrics as
@@ -106,15 +109,22 @@ def make_train_step(
     rank's ``dist.shardings.place`` of it and every rank is given the
     global batch.  On a ``(k, 1)`` mesh: the data-parallel step of the
     module docstring; ``n_micro`` is then the slices of each rank's 1/k.
-    On a mesh whose ``model`` axis has more than one rank:
-    ``_model_parallel_step``.  Without ``mesh`` (or at k = 1) the batch
-    split, the all-reduce, the slicing and the gather are each the
-    identity, and are skipped."""
+    On a mesh whose ``model`` axis has more than one rank, or with
+    ``batch_specs`` (a spec tree of the batch's structure):
+    ``_model_parallel_step``.  A batch laid out by ``batch_specs`` is
+    taken whole (a full-graph batch is one graph), so ``n_micro`` must
+    then be 1, as the reference's GNN cells never set it.  Without
+    ``mesh`` (or at k = 1) the batch split, the all-reduce, the slicing
+    and the gather are each the identity, and are skipped."""
     from ..dist import shardings as SH
 
-    if mesh is not None and SH.axis_sizes(mesh).get("model", 1) > 1:
+    if batch_specs is not None and (mesh is None or n_micro > 1):
+        raise ValueError("batch_specs lay a whole batch out on a mesh: they need a mesh "
+                         f"and n_micro 1 (mesh {mesh}, n_micro {n_micro})")
+    if mesh is not None and (SH.axis_sizes(mesh).get("model", 1) > 1
+                             or batch_specs is not None):
         return _model_parallel_step(loss_of_batch, lr_schedule, clip_norm, weight_decay,
-                                    n_micro, mesh, specs)
+                                    n_micro, mesh, specs, batch_specs)
     k, idx, group = (1, 0, None) if mesh is None else data_ranks(mesh)
     m_specs = None if mesh is None else leaves(specs.opt.m)
 
@@ -147,14 +157,15 @@ def make_train_step(
 
 
 def _model_parallel_step(loss_of_batch, lr_schedule, clip_norm: float, weight_decay: float,
-                         n_micro: int, mesh, specs):
+                         n_micro: int, mesh, specs, batch_specs=None):
     """The step on a ``(d, m)`` ("data", "model") mesh with m > 1: the
     reference's cells as GSPMD runs them.  Inside the step the state's
     slices are the DTensors they are shards of (``dist.spmd.from_local``:
     the parameters by ``lm_param_specs`` or ``dcn_param_specs``, the
     moments by their ``zero1_specs`` over both axes) and each rank's
     ``n_micro`` slices of its 1/d of the batch are laid out on the data
-    axis; the loss and its gradients run under ``dist.spmd.running``
+    axis (with ``batch_specs``, the whole batch by those specs instead:
+    each rank is given the global batch and keeps its shards); the loss and its gradients run under ``dist.spmd.running``
     (Megatron tensor parallelism: heads, ``d_ff`` and vocab over
     ``model``).  Each gradient is then laid out as its parameter
     (an all-reduce over the data axis where it is a partial sum there),
@@ -186,8 +197,12 @@ def _model_parallel_step(loss_of_batch, lr_schedule, clip_norm: float, weight_de
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with spmd.running():
             st = spmd.from_local(state, specs, mesh)
-            loss, grads = _accumulate(loss_of_batch, st.params, rank_rows(batch, idx, k),
-                                      n_micro, wrap=on_ranks)
+            if batch_specs is not None:
+                loss, grads = _value_and_grad(loss_of_batch, st.params,
+                                              spmd.distribute(batch, batch_specs, mesh))
+            else:
+                loss, grads = _accumulate(loss_of_batch, st.params, rank_rows(batch, idx, k),
+                                          n_micro, wrap=on_ranks)
             grads = spmd.redistribute(grads, specs.params, mesh)
             grads, gnorm = adamw.clip_by_global_norm(grads, clip_norm)
             lr = lr_schedule(st.opt.step)

@@ -260,6 +260,37 @@ def test_workspace_sizes():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_plain_lse_is_the_logsumexp_of_the_scores(dtype, no_kernel):
+    """``return_lse``: each query row's log-sum-exp of its scaled, masked
+    float32 scores, as ``torch.logsumexp`` gives it, -inf for rows of
+    length 0 (whose output stays 0); the output is the one without it,
+    and the strided entry's lse is the contiguous one's, by (B, n_kv)."""
+    q, k, v, lengths = inputs(5, 3, 200, 16, seed=7)
+    lengths[:2] = [0, 1]
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    lens = torch.from_numpy(lengths)
+    o, lse = fd.flash_decode(q, k, v, lens, return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (5, 3)
+    assert torch.equal(o, fd.flash_decode(q, k, v, lens))
+    s = torch.einsum("bqd,bsd->bqs", q.float(), k.float()) / 16 ** 0.5
+    s = torch.where(torch.arange(200)[None, None] < lens[:, None, None].long(), s, -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-6)
+    assert bool(torch.isneginf(lse[0]).all()) and bool((o[0] == 0).all())
+    assert bool(torch.isfinite(lse[1:]).all())
+    qc, kc, vc, lc = cache_inputs(3, 64, 2, 3, 16, seed=4, dtype=dtype)
+    lc[0] = 0
+    oc, lsec = fd.flash_decode_cache(qc, kc, vc, lc, return_lse=True)
+    assert tuple(lsec.shape) == (3, 2, 3)
+    assert torch.equal(oc, fd.flash_decode_cache(qc, kc, vc, lc))
+    kf = kc.permute(0, 2, 1, 3).reshape(6, 64, 16)
+    vf = vc.permute(0, 2, 1, 3).reshape(6, 64, 16)
+    _, want = fd.flash_decode_plain(qc.reshape(6, 3, 16), kf, vf, lc.repeat_interleave(2),
+                                    return_lse=True)
+    assert torch.equal(lsec.reshape(6, 3), want)
+    assert bool(torch.isneginf(lsec[0]).all())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -343,3 +374,27 @@ def test_cuda_flash_decode_cache_takes_tma_and_repeats_bits(cuda, dtype):
     assert torch.equal(a, b)
     want = fd.flash_decode_cache_plain(q, kc, vc, lengths)
     torch.testing.assert_close(a, want, **_tol(dtype, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,route", [(64, torch.bfloat16, "tma"), (128, torch.float32, "tma"),
+                                           (12, torch.bfloat16, "cpasync")])
+@pytest.mark.parametrize("S", [300, 20_000])
+def test_cuda_flash_decode_lse_matches_plain_and_keeps_the_output_bits(cuda, d, dtype, route, S):
+    """The kernel's log-sum-exp against the plain version's on both routes,
+    with one split (S = 300) and several (S = 20,000), rows of length 0
+    and 1 among them (-inf and the one score); the output's bits are
+    those of the call without it."""
+    q, k, v, lengths = inputs(5, 3, S, d, seed=d + S)
+    lengths[:2] = [0, 1]
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    lens = torch.from_numpy(lengths).to(cuda)
+    fd.reset_launches()
+    plain_out = fd.flash_decode(q, k, v, lens)
+    out, lse = fd.flash_decode(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == fd.LAUNCHES["flash_decode_" + route] == 2
+    assert torch.equal(out, plain_out)
+    _, want = fd.flash_decode_plain(q, k, v, lens, return_lse=True)
+    assert bool(torch.isneginf(lse[0]).all())
+    torch.testing.assert_close(lse[1:], want[1:], rtol=1e-5, atol=1e-5)

@@ -317,7 +317,12 @@ def test_blockwise_attention_saves_only_the_carries():
 def test_blockwise_attention_gradients_match_reference(triangular):
     """Forward values and the gradients of q, k and v of the checkpointed
     block loop against the reference's ``_blockwise_attention`` under
-    ``jax.grad`` (a fixed random cotangent)."""
+    ``jax.grad`` (a fixed random cotangent).  The gradients are held in
+    the float32 class (rtol 1e-5, atol 1e-5 * max|g|): the port's ``dv``
+    (max |dv| 4.58) moves by up to 1.4e-6 with the number of torch threads
+    (1, 4, 8), three float32 steps at its largest values, while the
+    reference's does not move with XLA's; a ``dv`` off by 1e-4 of itself
+    is 4.6e-4 off at its largest element, five times the bound there."""
     S = 3072
     cfg = tL.AttnConfig(d_model=24, n_heads=2, n_kv_heads=1, d_head=12)
     jcfg = jL.AttnConfig(d_model=24, n_heads=2, n_kv_heads=1, d_head=12)
@@ -337,8 +342,9 @@ def test_blockwise_attention_gradients_match_reference(triangular):
     (to * _t(ct)).sum().backward()
     np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), rtol=1e-5, atol=1e-6)
     for t, g, name in zip((tq, tk, tv), jg, "qkv"):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-5, atol=1e-6,
-                                   err_msg=f"d{name}")
+        g = np.asarray(g)
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(g).max()), err_msg=f"d{name}")
 
 
 # ---------------------------------------------------------------------------

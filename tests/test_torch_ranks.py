@@ -17,6 +17,7 @@ or 2 each.
 
 ``spawn_ranks`` is shared with ``test_torch_moe.py``'s shard_map MoE.
 """
+import faulthandler
 import os
 import pickle
 import time
@@ -50,6 +51,7 @@ SPAWN_TIMEOUT_S = 300
 
 
 def _run(rank, fn, world, store, out, args):
+    faulthandler.enable()  # a rank killed by a signal prints its Python stack
     torch.set_num_threads(1)
     mesh_lib.init_ranks(device="cpu", init_method=f"file://{store}", rank=rank,
                         world_size=world)
@@ -61,21 +63,23 @@ def _run(rank, fn, world, store, out, args):
         pickle.dump(res, f)
 
 
-def spawn_ranks(fn, world: int, tmp_path, *args) -> list:
+def spawn_ranks(fn, world: int, tmp_path, *args, timeout: float = SPAWN_TIMEOUT_S,
+                tag: str = "") -> list:
     """``fn(*args)`` on ``world`` gloo ranks on the CPU; each rank's
     result, by rank.  Fails the test (and kills the ranks) past
-    ``SPAWN_TIMEOUT_S``."""
-    out = tmp_path / f"ranks{world}"
+    ``timeout`` seconds.  ``tag`` tells apart two spawns of one world
+    size in one ``tmp_path``."""
+    out = tmp_path / f"ranks{world}{tag}"
     out.mkdir()
-    store = tmp_path / f"store{world}"
+    store = tmp_path / f"store{world}{tag}"
     ctx = mp.spawn(_run, args=(fn, world, str(store), str(out), args), nprocs=world,
                    join=False)
-    deadline = time.time() + SPAWN_TIMEOUT_S
+    deadline = time.time() + timeout
     while not ctx.join(timeout=2):
         if time.time() > deadline:
             for p in ctx.processes:
                 p.kill()
-            pytest.fail(f"{world} ranks did not finish in {SPAWN_TIMEOUT_S} s")
+            pytest.fail(f"{world} ranks did not finish in {timeout} s")
     res = []
     for r in range(world):
         with open(out / f"{r}.pkl", "rb") as f:

@@ -20,9 +20,15 @@ REDUCED has 1000).  Two train steps at ``n_micro`` 2 of the global
 batch; ``global_norm`` of the parameters; prefill logits; ``generate``'s
 greedy tokens on a cache sharded on the kv heads (qwen on (1, 2) and
 (2, 2), the latter with the batch over the data axis too) and on the
-sequence (smollm everywhere, qwen on (1, 4)); flash decode on a
-sequence-sharded cache raises; DCN-v2 serve and retrieval; the
-checkpoint chain (2, 2) -> (4, 1) -> (1, 1) -> (1, 2).
+sequence (smollm everywhere, qwen on (1, 4)), and flash decode on both, each
+rank's launch on a sequence-sharded cache combined with the others' by
+their log-sum-exps; DCN-v2 serve and retrieval; the
+checkpoint chain (2, 2) -> (4, 1) -> (1, 1) -> (1, 2).  The 4-rank spawn
+saves the (2, 2) state and runs the (4, 1) link itself; the (1, 1) and
+(1, 2) links run in two short spawns started one after the other once
+the first three have returned, so no spawn waits on another's output
+inside its deadline (``DEADLINE_S``: at least three times each spawn's
+time beside five heavy test files under ``-n 6``).
 
 Tolerances (float32; the sharded products and reductions add in another
 order): against one rank, losses and grad norms rtol ``RTOL_ONE`` and
@@ -89,7 +95,12 @@ RTOL_ONE = 1e-5
 ATOL_OUT = 1e-5
 # lr at steps 0 and 1 of the schedule: 0 (warmup) and the peak
 STEP_ATOL = 1e-3 * LR["peak_lr"]
-CHAIN_TIMEOUT_S = 240
+# seconds a spawn may take: tp4 and tp2 the 4- and 2-rank spawns, one the
+# world-size-1 answers, c11 and c12 the chain's (1, 1) and (1, 2) links.
+# Each is at least three times the spawn's time beside five heavy test
+# files under -n 6 on an 8-core host (323.7, 185.6, 26.4, 8.4 and 15.4 s;
+# alone 119.7, 61.4, 9.4, 8.2 and 14.4 s).
+DEADLINE_S = {"tp4": 1000, "tp2": 600, "one": 240, "c11": 90, "c12": 90}
 
 
 # ---------------------------------------------------------------------------
@@ -209,11 +220,8 @@ def lm_case(arch, x, mesh) -> dict:
         out["norm"] = float(_value(adamw.global_norm(served)))
         out["prefill"] = _value(tserve.make_prefill(cfg)(served, prompt))
     out["tokens"] = tserve.generate(served, cfg, prompt, NEW).numpy()
-    try:
-        out["flash_tokens"] = tserve.generate(served, cfg, prompt, NEW,
-                                              use_flash_kernel=True).numpy()
-    except NotImplementedError as e:
-        out["flash_tokens"] = f"NotImplementedError: {e}"
+    out["flash_tokens"] = tserve.generate(served, cfg, prompt, NEW,
+                                          use_flash_kernel=True).numpy()
     if mesh is not None:
         cache = tT.init_kv_cache(cfg, PROMPT_B, PROMPT_S + NEW, device="cpu", mesh=mesh)
         out["cache_layout"] = [repr(p) for p in cache["k"].placements]
@@ -312,24 +320,17 @@ def masked_set(mesh) -> dict:
     return {"equal": bool(torch.equal(got, want))}
 
 
-def _await(path: str):
-    t = time.time()
-    while not os.path.exists(path):
-        if time.time() - t > CHAIN_TIMEOUT_S:
-            raise TimeoutError(f"no checkpoint at {path}")
-        time.sleep(0.2)
-
-
 def _step_dir(root, name):
     return os.path.join(root, name, f"step_{STEPS:09d}")
 
 
 def _chain(arch, params, mesh, src, dst, root):
-    """Restore ``src``'s checkpoint onto ``mesh`` by its own specs, return
-    the logical leaves, and save them with those specs under ``dst``."""
+    """Restore ``src``'s committed checkpoint onto ``mesh`` by its own
+    specs, return the logical leaves, and save them with those specs under
+    ``dst``."""
     cfg = registry.get(arch).reduced
     specs = _specs(arch, cfg, params, mesh)
-    _await(os.path.join(_step_dir(root, src), "COMMITTED"))
+    assert os.path.exists(os.path.join(_step_dir(root, src), "COMMITTED")), src
     step, st = ckpt.restore(os.path.join(root, src), STEPS, device="cpu",
                             template=TS.init_state(params), mesh=mesh, target_specs=specs)
     if dst is not None:
@@ -351,25 +352,23 @@ def tp_ranks(inputs, root) -> dict:
         out[shape]["dcn-v2"] = dcn_case(inputs["dcn-v2"], mesh)
         out[shape]["layout"] = layout_agreement(mesh)
         out[shape]["masked_set"] = masked_set(mesh)
-    params = tL.params_from_numpy(inputs["qwen2.5-3b"]["params"], device="cpu")
-    if world == 4:
-        mesh = mesh_lib.rank_mesh((4, 1), ("data", "model"), device="cpu")
-        out["chain"] = _chain("qwen2.5-3b", params, mesh, "c22", "c41", root)
-    else:
-        mesh = mesh_lib.rank_mesh((1, 2), ("data", "model"), device="cpu")
-        out["chain"] = _chain("qwen2.5-3b", params, mesh, "c11", None, root)
+    if world == 4:  # the chain's (4, 1) link, from this spawn's own c22
+        out["chain"] = chain_link(inputs, root, (4, 1), "c22", "c41")
     out["host_copied"] = dict(spmd.HOST_COPIED)
     return out
 
 
+def chain_link(inputs, root, shape, src, dst) -> dict:
+    """One link of the checkpoint chain on a ``shape`` mesh."""
+    params = tL.params_from_numpy(inputs["qwen2.5-3b"]["params"], device="cpu")
+    mesh = mesh_lib.rank_mesh(shape, ("data", "model"), device="cpu")
+    return _chain("qwen2.5-3b", params, mesh, src, dst, root)
+
+
 def one_rank(inputs, root) -> dict:
-    """The one-rank answers (a world-size-1 spawn, no mesh), and the
-    chain's (1, 1) link."""
+    """The one-rank answers (a world-size-1 spawn, no mesh)."""
     out = {arch: lm_case(arch, inputs[arch], None)[0] for arch in LM_ARCHS}
     out["dcn-v2"] = dcn_case(inputs["dcn-v2"], None)
-    params = tL.params_from_numpy(inputs["qwen2.5-3b"]["params"], device="cpu")
-    mesh = mesh_lib.rank_mesh((1, 1), ("data", "model"), device="cpu")
-    out["chain"] = _chain("qwen2.5-3b", params, mesh, "c41", "c11", root)
     return out
 
 
@@ -400,22 +399,47 @@ def dry_run_counts() -> dict:
     return out
 
 
+def run_spawns(root, inputs, reference_side=lambda: None):
+    """The 4-, 2- and 1-rank spawns side by side (with ``reference_side()``
+    here meanwhile), then the chain's (1, 1) and (1, 2) links one after
+    the other; each spawn's results by name, its seconds, and what
+    ``reference_side`` returned."""
+    ck = str(root / "ckpt")
+    seconds = {}
+
+    def timed(name, fn, world, *args):
+        t = time.perf_counter()
+        res = spawn_ranks(fn, world, root, inputs, ck, *args, timeout=DEADLINE_S[name],
+                          tag=name)
+        seconds[name] = time.perf_counter() - t
+        return res
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(timed, name, fn, w)
+                for name, fn, w in (("tp4", tp_ranks, 4), ("tp2", tp_ranks, 2),
+                                    ("one", one_rank, 1))}
+        side = reference_side()
+        res = {name: f.result() for name, f in jobs.items()}
+    res["c11"] = timed("c11", chain_link, 1, (1, 1), "c41", "c11")
+    res["c12"] = timed("c12", chain_link, 2, (1, 2), "c11", None)
+    return res, seconds, side
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("tp")
     inputs = make_inputs()
-    ck = str(root / "ckpt")
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        jobs = {w: pool.submit(spawn_ranks, fn, w, root, inputs, ck)
-                for w, fn in ((4, tp_ranks), (2, tp_ranks), (1, one_rank))}
-        ref = reference(inputs)
-        counted = dry_run_counts()
-        res = {w: f.result() for w, f in jobs.items()}
+    res, seconds, (ref, counted) = run_spawns(
+        tmp_path_factory.mktemp("tp"), inputs,
+        lambda: (reference(inputs), dry_run_counts()))
+    ranks = {4: res["tp4"], 2: res["tp2"]}
     by_mesh = {}
     for w in (4, 2):
         for shape in MESHES[w]:
-            by_mesh[shape] = [r[shape] for r in res[w]]
-    return {"mesh": by_mesh, "ranks": res, "one": res[1][0], "ref": ref, "counted": counted}
+            by_mesh[shape] = [r[shape] for r in ranks[w]]
+    return {"mesh": by_mesh, "ranks": ranks, "one": res["one"][0], "ref": ref,
+            "counted": counted, "chain": {"(4, 1)": [r["chain"] for r in res["tp4"]],
+                                          "(1, 1)": res["c11"], "(1, 2)": res["c12"]},
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -528,17 +552,13 @@ def test_both_cache_layouts_are_covered(runs):
 
 @pytest.mark.parametrize("mesh", ALL_MESHES)
 @pytest.mark.parametrize("arch", LM_ARCHS)
-def test_flash_decode_on_kv_sharded_cache_matches_and_raises_on_seq_sharded(runs, arch,
-                                                                            mesh):
-    """The flash path on each rank's kv heads gives the plain tokens; on a
-    sequence-sharded cache it raises, naming the ROADMAP item."""
+def test_flash_decode_on_kv_and_seq_sharded_caches_gives_the_plain_tokens(runs, arch, mesh):
+    """The flash path on each rank's kv heads, and on each rank's block of
+    a sequence-sharded cache (each launch's log-sum-exp combining the
+    ranks' partial outputs), gives the plain decode's tokens."""
     for res in runs["mesh"][mesh]:
-        got = res[arch]["flash_tokens"]
-        if _layout(res, arch) == "kv":
-            np.testing.assert_array_equal(got, res[arch]["tokens"])
-        else:
-            assert isinstance(got, str) and got.startswith("NotImplementedError")
-            assert "ROADMAP.md item 16" in got
+        assert _layout(res, arch) in ("kv", "seq")
+        np.testing.assert_array_equal(res[arch]["flash_tokens"], res[arch]["tokens"])
     np.testing.assert_array_equal(runs["one"][arch]["flash_tokens"],
                                   runs["one"][arch]["tokens"])
 
@@ -580,9 +600,8 @@ def test_checkpoint_reshards_bit_for_bit(runs):
     """(2, 2) -> (4, 1) -> (1, 1) -> (1, 2): every link's logical leaves
     equal the (2, 2) state's, bit for bit."""
     want = runs["mesh"][(2, 2)][0]["qwen2.5-3b"]["state"]
-    links = ([("(4, 1)", r["chain"]) for r in runs["ranks"][4]]
-             + [("(1, 1)", runs["one"]["chain"])]
-             + [("(1, 2)", r["chain"]) for r in runs["ranks"][2]])
+    links = [(name, got) for name, per_rank in runs["chain"].items() for got in per_rank]
+    assert [n for n, _ in links] == ["(4, 1)"] * 4 + ["(1, 1)"] + ["(1, 2)"] * 2
     for name, got in links:
         assert got.keys() == want.keys(), name
         for p in want:
